@@ -2,9 +2,10 @@
 
 The vectorized SpinTorque-v0 environment step - action decode, the masked
 LLGS pulse integration (a hand-written CUDA kernel for Hopper on the GPU,
-its plain PyTorch version on the CPU), energy, observation, composite reward
-and auto-reset - over a batch of independent spintronic devices. The JAX
-package ``spintorque_tpu`` is the reference it is tested against.
+float32 or with bf16 stage arithmetic, its plain PyTorch version on the
+CPU), energy, observation, composite reward and auto-reset - over a batch
+of independent spintronic devices, and the PPO trainer on top of it. The
+JAX package ``spintorque_tpu`` is the reference it is tested against.
 """
 
 __version__ = "0.5.0"
@@ -12,12 +13,13 @@ __version__ = "0.5.0"
 # ``ops`` before ``physics``: ops.cuda_integrator imports physics.integrator,
 # which imports ops.philox.
 from . import constants, ops  # noqa: I001
-from . import devices, physics, rewards
+from . import devices, physics, rewards, rl
 from .devices import DeviceParams, make_device_params
 from .envs import EnvState, SpinTorqueEnv, SpinTorqueEnvConfig, TimeStep
 from .physics import IntegratorConfig, LLGSParams, integrate_pulse
 from .rewards import CompositeReward
-from .utils import measure_env_throughput
+from .rl import ActorCritic, PPOConfig, PPOTrainer
+from .utils import measure_env_throughput, measure_train_throughput
 
 __all__ = [
     "constants",
@@ -25,6 +27,7 @@ __all__ = [
     "ops",
     "physics",
     "rewards",
+    "rl",
     "DeviceParams",
     "make_device_params",
     "EnvState",
@@ -35,6 +38,10 @@ __all__ = [
     "LLGSParams",
     "integrate_pulse",
     "CompositeReward",
+    "ActorCritic",
+    "PPOConfig",
+    "PPOTrainer",
     "measure_env_throughput",
+    "measure_train_throughput",
     "__version__",
 ]

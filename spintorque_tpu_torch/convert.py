@@ -5,7 +5,8 @@ The JAX side is seen only as numpy dicts of its dataclass fields (flax
 
   * ``LLGSParams`` / ``DeviceParams`` fields -> the port's dataclasses;
   * ``EnvState`` leaves (m, target, step, total_energy, last_current,
-    last_duration, episode_return, key, reward_stats) -> the port's EnvState.
+    last_duration, episode_return, key, reward_stats) -> the port's EnvState;
+  * the flax ``ActorCritic`` parameter tree -> ``rl.ActorCritic`` and back.
 
 A JAX PRNG key (two uint32 words) maps to the port's 64-bit seed as
 (key[0] << 32) | key[1], and back; the port's reset generator is seeded with
@@ -24,6 +25,7 @@ from .devices.params import DeviceParams
 from .envs.spin_torque import EnvState
 from .physics.llgs import LLGSParams
 from .rewards.composite import RunningStat
+from .rl.networks import ActorCritic
 
 _LLGS_FIELDS = [f.name for f in dataclasses.fields(LLGSParams) if f.name != "plus_z"]
 _STATE_TENSORS = (
@@ -93,4 +95,40 @@ def env_state_to_numpy(state: EnvState) -> Dict[str, Any]:
                for f in dataclasses.fields(RunningStat)}
         for name, st in state.reward_stats.items()
     }
+    return out
+
+
+def _actor_critic_layers(module: ActorCritic):
+    """(flax layer name, nn.Linear) pairs of an ActorCritic."""
+    for name, trunk in module.trunks.items():
+        for i, layer in enumerate(trunk):
+            yield f"{name}_dense_{i}", layer
+    head = "actor_logits" if module.discrete else "actor_mean"
+    yield head, getattr(module, head)
+    yield "critic_value", module.critic_value
+
+
+def actor_critic_params_from_numpy(flax_params: Dict[str, Any], module: ActorCritic) -> ActorCritic:
+    """Copy the flax ActorCritic's parameters (a nested dict of numpy
+    arrays) into ``module`` in place, in its dtype and on its device. A flax
+    Dense kernel is (in, out) and an nn.Linear weight (out, in), so the
+    kernel is transposed. Returns ``module``."""
+    with torch.no_grad():
+        for name, layer in _actor_critic_layers(module):
+            layer.weight.copy_(torch.tensor(np.asarray(flax_params[name]["kernel"]).T))
+            layer.bias.copy_(torch.tensor(np.asarray(flax_params[name]["bias"])))
+        if not module.discrete:
+            module.log_std.copy_(torch.tensor(np.asarray(flax_params["log_std"])))
+    return module
+
+
+def actor_critic_params_to_numpy(module: ActorCritic) -> Dict[str, Any]:
+    """The flax ActorCritic's parameter tree from ``module``."""
+    out: Dict[str, Any] = {
+        name: {"kernel": layer.weight.detach().cpu().numpy().T.copy(),
+               "bias": layer.bias.detach().cpu().numpy()}
+        for name, layer in _actor_critic_layers(module)
+    }
+    if not module.discrete:
+        out["log_std"] = module.log_std.detach().cpu().numpy()
     return out

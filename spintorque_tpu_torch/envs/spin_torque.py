@@ -59,7 +59,9 @@ class SpinTorqueEnvConfig(NamedTuple):
     rk4_noise: str = "per_substep"
     autoreset: bool = True
     dtype: str = "float32"
-    bf16_rhs: bool = False  # not ported: raises at env construction
+    # bf16 stage arithmetic in the pulse integrator (K6 on CUDA; the plain
+    # bf16 version on the CPU, where the JAX package computes float32).
+    bf16_rhs: bool = False
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -129,7 +131,8 @@ class SpinTorqueEnv:
     ``device`` is required. On "cuda" the configuration must be one the
     kernel covers (float32, a known method, a finite nonzero easy axis), and
     construction builds the kernel library and probes it; both raise on
-    failure.
+    failure. ``bf16_rhs=True`` launches the kernel's bf16 variant (K6) on
+    CUDA and runs its plain bf16 version on the CPU.
     """
 
     def __init__(

@@ -7,6 +7,7 @@
 from . import philox
 from .cuda_integrator import (
     PROBE_LAUNCHES,
+    PULSE_BF16_LAUNCHES,
     PULSE_LAUNCHES,
     cuda_kernel_available,
     cuda_supported,
@@ -16,6 +17,7 @@ from .cuda_integrator import (
 __all__ = [
     "philox",
     "PROBE_LAUNCHES",
+    "PULSE_BF16_LAUNCHES",
     "PULSE_LAUNCHES",
     "cuda_kernel_available",
     "cuda_supported",

@@ -107,7 +107,7 @@ def load_library() -> KernelLibrary:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.spintorque_pulse_integrate.argtypes = [p] * 19 + [i] * 5 + [u, u, i, p]
+    lib.spintorque_pulse_integrate.argtypes = [p] * 19 + [i] * 6 + [u, u, i, p]
     lib.spintorque_pulse_integrate.restype = i
     lib.spintorque_probe_add_one.argtypes = [p, p, i, p]
     lib.spintorque_probe_add_one.restype = i

@@ -1,7 +1,8 @@
 """The LLGS pulse kernel on CUDA: its gate, probe, wrapper and launch counts.
 
 Counterpart of ``spintorque_tpu/ops/pallas_integrator.py``. The kernel
-(``csrc/pulse_integrator.cu``) replaces the Pallas kernel ``_kernel`` and
+(``csrc/pulse_integrator.cu``) replaces the Pallas kernel ``_kernel``, in
+float32 (K1) and with ``bf16_rhs`` (K6, one more template instance), and
 ``integrate_pulse_cuda`` replaces its host side (``_pallas_core``): the dt
 law and clamp, the per-env coefficients, the descending-n sort, the launch.
 The kernel reads and writes env ``perm[t]`` from thread t, so no gather or
@@ -49,8 +50,9 @@ class LaunchCounter:
         self.count = 0
 
 
-PULSE_LAUNCHES = LaunchCounter()
-PROBE_LAUNCHES = LaunchCounter()
+PULSE_LAUNCHES = LaunchCounter()  # K1
+PULSE_BF16_LAUNCHES = LaunchCounter()  # K6
+PROBE_LAUNCHES = LaunchCounter()  # K2
 
 
 def _axis_on_host(easy_axis) -> torch.Tensor:
@@ -64,10 +66,10 @@ def is_plus_z(easy_axis) -> bool:
 
 
 def cuda_supported(params: LLGSParams, config: IntegratorConfig, dtype) -> bool:
-    """Whether the kernel covers this configuration: float32, a known method,
-    no bf16 stage arithmetic, and a finite nonzero easy axis (read to the
-    host, so call it once at build time, not per step)."""
-    if config.method not in _METHODS or config.bf16_rhs:
+    """Whether the kernel covers this configuration: float32, a known method
+    (with or without bf16 stage arithmetic), and a finite nonzero easy axis
+    (read to the host, so call it once at build time, not per step)."""
+    if config.method not in _METHODS:
         return False
     if dtype != torch.float32:
         return False
@@ -158,9 +160,10 @@ def integrate_pulse_cuda(
 
     Takes contiguous float32 (B,) CUDA tensors for m0's components, span and
     current; params fields on the same device, 0-dim or (B,) ((3,) or (B, 3)
-    for the easy axis). Raises on anything else, on an unknown method and on
-    ``bf16_rhs``. Launches on the current stream and does not synchronize;
-    it reads nothing back from the device unless ``params.plus_z`` is None.
+    for the easy axis). Raises on anything else and on an unknown method.
+    Launches K6 when ``config.bf16_rhs``, else K1, on the current stream
+    and does not synchronize; it reads nothing back from the device unless
+    ``params.plus_z`` is None.
     """
     check_config(config)
     mx0, my0, mz0 = m0
@@ -211,9 +214,10 @@ def integrate_pulse_cuda(
             ptr("ex"), ptr("ey"), ptr("ez"), perm.data_ptr(),
             mx.data_ptr(), my.data_ptr(), mz.data_ptr(), failed.data_ptr(),
             batch, _METHODS[config.method], int(config.thermal),
-            int(noise_draws(config) == 3), int(plus_z), seed_lo, seed_hi, PULSE_BLOCK, stream,
+            int(noise_draws(config) == 3), int(plus_z), int(config.bf16_rhs), seed_lo, seed_hi,
+            PULSE_BLOCK, stream,
         )
-        PULSE_LAUNCHES.count += 1
+        (PULSE_BF16_LAUNCHES if config.bf16_rhs else PULSE_LAUNCHES).count += 1
     if rc != 0:
         raise RuntimeError(f"pulse kernel launch failed: cudaError {rc}")
     return PulseResult(m=(mx, my, mz), n_substeps=n, dt=dt, failed=failed)

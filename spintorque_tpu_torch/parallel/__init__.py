@@ -1,5 +1,5 @@
-"""Rollout helpers (only ``random_policy`` is ported so far)."""
+"""Rollout collection (single device; the mesh path is not ported yet)."""
 
-from .rollout import random_policy
+from .rollout import Trajectory, random_policy, rollout, summarize
 
-__all__ = ["random_policy"]
+__all__ = ["Trajectory", "random_policy", "rollout", "summarize"]

@@ -23,6 +23,16 @@ Thermal noise modes:
     discretization of Brown's model; best paired with method='heun'.
 The noise comes from the counter-based Philox stream of ``ops/philox.py``,
 keyed by a 64-bit seed, which the kernel draws bit for bit the same.
+
+``bf16_rhs`` runs the stage arithmetic in bfloat16, as the JAX package's
+Pallas kernel does: the coefficients, dt, a bf16 copy of the state and the
+thermal field (sigma * normal in the state's dtype, then cast) enter every
+stage in bf16, and each op rounds to bf16 as a torch bf16 op does. The
+increment is widened and added to the carried state, which is normalized
+in full precision. The plain version runs this on the CPU too, where the
+JAX package's XLA path ignores ``bf16_rhs`` and computes in float32; the
+JAX bf16 kernel in interpret mode keeps some intermediates in float32, so
+the two agree in distribution, not bit for bit.
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ import torch
 
 from ..constants import GAMMA, KB_SOLVER, MU0
 from ..ops import philox
-from .llgs import LLGSParams, coefficients, dmdt_from, normalize_with_fallback
+from .llgs import Coefficients, LLGSParams, coefficients, dmdt_from, normalize_with_fallback
 
 Tensor = torch.Tensor
 
@@ -57,7 +67,8 @@ class IntegratorConfig(NamedTuple):
     #   'per_substep' - one field realization held over the four stages
     #                   (the standard SDE treatment, as stochastic Heun).
     rk4_noise: str = "per_stage"
-    # bf16 stage arithmetic: not ported yet (raises NotImplementedError).
+    # bf16 stage arithmetic with the state carry, accumulation and
+    # normalize in full precision (the module docstring).
     bf16_rhs: bool = False
 
 
@@ -103,8 +114,6 @@ class PulseResult(NamedTuple):
 
 def check_config(config: IntegratorConfig) -> None:
     """Raise on a configuration that no integrator of the port runs."""
-    if config.bf16_rhs:
-        raise NotImplementedError("bf16_rhs: the bf16 stage-arithmetic variant is not ported")
     if config.method not in _N_STAGES:
         raise ValueError(f"Unknown method: {config.method}")
     if config.thermal:
@@ -141,8 +150,8 @@ def noise_draws(config: IntegratorConfig) -> int:
     return 3 if (config.method == "rk4" and config.rk4_noise == "per_stage") else 1
 
 
-def _substep(m, dt, c, method: str, stage):
-    """One integration substep: advance + normalize-with-fallback.
+def _increment(m, dt, c, method: str, stage):
+    """One substep's increment of m, in the dtype of ``m``, ``dt`` and ``c``.
 
     ``stage`` holds the thermal field of each RK stage (None when
     deterministic); Euler and Heun use stage 0 for every evaluation."""
@@ -153,41 +162,51 @@ def _substep(m, dt, c, method: str, stage):
 
     if method == "euler":
         fx, fy, fz = rhs(mx, my, mz, 0)
-        nx, ny, nz = mx + dt * fx, my + dt * fy, mz + dt * fz
-    elif method == "heun":
+        return dt * fx, dt * fy, dt * fz
+    if method == "heun":
         # Stochastic Heun: the corrector reuses the predictor's noise.
         fx, fy, fz = rhs(mx, my, mz, 0)
         gx, gy, gz = rhs(mx + dt * fx, my + dt * fy, mz + dt * fz, 0)
         half_dt = 0.5 * dt
-        nx = mx + half_dt * (fx + gx)
-        ny = my + half_dt * (fy + gy)
-        nz = mz + half_dt * (fz + gz)
-    else:
-        six = torch.full_like(dt, 6.0)
-        k1x, k1y, k1z = rhs(mx, my, mz, 0)
-        k1x, k1y, k1z = dt * k1x, dt * k1y, dt * k1z
-        k2x, k2y, k2z = rhs(mx + k1x / 2, my + k1y / 2, mz + k1z / 2, 1)
-        k2x, k2y, k2z = dt * k2x, dt * k2y, dt * k2z
-        k3x, k3y, k3z = rhs(mx + k2x / 2, my + k2y / 2, mz + k2z / 2, 2)
-        k3x, k3y, k3z = dt * k3x, dt * k3y, dt * k3z
-        k4x, k4y, k4z = rhs(mx + k3x, my + k3y, mz + k3z, 3)
-        k4x, k4y, k4z = dt * k4x, dt * k4y, dt * k4z
-        nx = mx + (k1x + 2 * k2x + 2 * k3x + k4x) / six
-        ny = my + (k1y + 2 * k2y + 2 * k3y + k4y) / six
-        nz = mz + (k1z + 2 * k2z + 2 * k3z + k4z) / six
-    return normalize_with_fallback(nx, ny, nz)
+        return half_dt * (fx + gx), half_dt * (fy + gy), half_dt * (fz + gz)
+    six = torch.full_like(dt, 6.0)
+    k1x, k1y, k1z = rhs(mx, my, mz, 0)
+    k1x, k1y, k1z = dt * k1x, dt * k1y, dt * k1z
+    k2x, k2y, k2z = rhs(mx + k1x / 2, my + k1y / 2, mz + k1z / 2, 1)
+    k2x, k2y, k2z = dt * k2x, dt * k2y, dt * k2z
+    k3x, k3y, k3z = rhs(mx + k2x / 2, my + k2y / 2, mz + k2z / 2, 2)
+    k3x, k3y, k3z = dt * k3x, dt * k3y, dt * k3z
+    k4x, k4y, k4z = rhs(mx + k3x, my + k3y, mz + k3z, 3)
+    k4x, k4y, k4z = dt * k4x, dt * k4y, dt * k4z
+    return (
+        (k1x + 2 * k2x + 2 * k3x + k4x) / six,
+        (k1y + 2 * k2y + 2 * k3y + k4y) / six,
+        (k1z + 2 * k2z + 2 * k3z + k4z) / six,
+    )
 
 
-def _stage_fields(normals: Tensor, sigma: Tensor, config: IntegratorConfig):
+def _substep(m, dt, c, method: str, stage, stage_dtype):
+    """One integration substep: the increment, computed in ``stage_dtype``
+    (``dt``, ``c`` and ``stage`` already are), added to the carried state,
+    then normalize-with-fallback."""
+    mx, my, mz = m
+    sm = tuple(x.to(stage_dtype) for x in m)
+    dx, dy, dz = _increment(sm, dt, c, method, stage)
+    return normalize_with_fallback(mx + dx.to(mx.dtype), my + dy.to(my.dtype),
+                                   mz + dz.to(mz.dtype))
+
+
+def _stage_fields(normals: Tensor, sigma: Tensor, config: IntegratorConfig, stage_dtype):
     """Thermal field of each RK stage from one substep's (4 * draws, B)
     normals: stage s of per-stage RK4 takes normals 3s..3s+2, every other
-    case takes normals 0..2 for all its stages."""
+    case takes normals 0..2 for all its stages. sigma * normal is taken in
+    the normals' dtype, then cast to ``stage_dtype``."""
     per_stage = noise_draws(config) == 3
     n_stages = _N_STAGES[config.method]
     fields = []
     for s in range(n_stages):
         o = 3 * s if per_stage else 0
-        fields.append((sigma * normals[o], sigma * normals[o + 1], sigma * normals[o + 2]))
+        fields.append(tuple((sigma * normals[o + k]).to(stage_dtype) for k in range(3)))
     return fields
 
 
@@ -217,7 +236,10 @@ def integrate_pulse_plain(
 
     dt, n = clamped_substep_counts(span, config)
     n_max = int(n.max()) if n.numel() else 0
-    c = coefficients(current, params)
+    stage_dtype = torch.bfloat16 if config.bf16_rhs else dtype
+    # Cast once: the cast of a loop invariant is the same every substep.
+    c_stage = Coefficients(*(x.to(stage_dtype) for x in coefficients(current, params)))
+    dt_stage = dt.to(stage_dtype)
 
     sigma = None
     if config.thermal:
@@ -236,8 +258,8 @@ def integrate_pulse_plain(
             if j == 0:
                 steps = torch.arange(i, min(i + _NOISE_CHUNK, n_max), device=mx.device)
                 normals = philox.substep_normals(seed, env_index, steps, draws, dtype)
-            stage = _stage_fields(normals[j], sigma, config)
-        nx, ny, nz = _substep((mx, my, mz), dt, c, config.method, stage)
+            stage = _stage_fields(normals[j], sigma, config, stage_dtype)
+        nx, ny, nz = _substep((mx, my, mz), dt_stage, c_stage, config.method, stage, stage_dtype)
         active = i < n
         zero_row = active & (nx == 0.0) & (ny == 0.0) & (nz == 0.0)
         mx = torch.where(active, nx, mx)

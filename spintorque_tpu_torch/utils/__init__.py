@@ -1,5 +1,5 @@
-"""Utilities (only the throughput measurement is ported so far)."""
+"""Utilities (only the throughput measurements are ported so far)."""
 
-from .benchmark import measure_env_throughput
+from .benchmark import measure_env_throughput, measure_train_throughput
 
-__all__ = ["measure_env_throughput"]
+__all__ = ["measure_env_throughput", "measure_train_throughput"]

@@ -1,14 +1,18 @@
-"""Steady-state throughput of the vectorized env step.
+"""Steady-state throughput of the vectorized env step and of the PPO train
+step.
 
-PyTorch counterpart of ``spintorque_tpu/utils/benchmark.py``: the one
-measurement program of the port. It runs programs of ``n_inner`` eager env
-steps (16 is the PPO rollout length) with random actions, warms up, then
-times ``blocks`` blocks of ``iters_per_block`` programs with one device
-synchronize per block, on the env's own device.
+PyTorch counterpart of ``spintorque_tpu/utils/benchmark.py``.
+``measure_env_throughput`` runs programs of ``n_inner`` eager env steps (16
+is the PPO rollout length) with random actions, warms up, then times
+``blocks`` blocks of ``iters_per_block`` programs with one device
+synchronize per block, on the env's own device. ``measure_train_throughput``
+times ``PPOTrainer`` train steps and splits each into its rollout and update
+phases.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
@@ -84,3 +88,77 @@ def measure_env_throughput(
     if return_final:
         return rates, steps_per_block, obs
     return rates, steps_per_block
+
+
+def measure_train_throughput(trainer, *, warmup: int = 1, steps: int = 3, seed: int = 0,
+                             sync_debug_mode=None):
+    """Train env-steps/s of ``trainer`` (a ``PPOTrainer``) in steady state.
+
+    Runs ``warmup`` train steps, then times ``steps`` train steps, each its
+    rollout (``trainer.collect``) then its update (``trainer.update``), the
+    two phases of ``trainer.train_step``. A step's env-steps are
+    ``rollout_steps * batch_size``. On CUDA the phases are timed by CUDA
+    events and the step by the host clock up to a synchronize that ends it;
+    eager phases run back to back on one stream, so the two add up to the
+    step's device time, and a phase whose launches the host issues slower
+    than the device runs them includes the device's wait for the host. On
+    the CPU everything is the host clock.
+    ``sync_debug_mode`` (CUDA only), when set, runs the timed steps under
+    ``torch.cuda.set_sync_debug_mode``; each step's closing synchronize runs
+    outside it.
+
+    Returns a dict: ``device`` (the card's name, or "cpu"), ``rates``
+    (env-steps/s per timed step), ``env_steps_per_step``, ``rollout_ms`` and
+    ``update_ms`` (per timed step), ``metrics`` (the last step's, as floats)
+    and ``state`` (the final TrainState).
+    """
+    env = trainer.env
+    cuda = env.device.type == "cuda"
+    if sync_debug_mode is not None and not cuda:
+        raise ValueError("sync_debug_mode needs an env on a CUDA device")
+    ts = trainer.init(seed)
+    for _ in range(warmup):
+        ts, _ = trainer.train_step(ts)
+    env_steps = trainer.config.rollout_steps * env.batch_size
+    out = dict(
+        device=torch.cuda.get_device_name(env.device) if cuda else "cpu",
+        rates=[], env_steps_per_step=env_steps, rollout_ms=[], update_ms=[],
+    )
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(env.device)
+
+    metrics = {}
+    sync()
+    for _ in range(steps):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if cuda else None
+        t0 = time.perf_counter()
+        if sync_debug_mode is not None:
+            torch.cuda.set_sync_debug_mode(sync_debug_mode)
+        try:
+            if cuda:
+                marks[0].record()
+            ts, traj = trainer.collect(ts)
+            if cuda:
+                marks[1].record()
+            t1 = time.perf_counter()
+            metrics = trainer.update(ts, traj)
+            ts = dataclasses.replace(ts, update_count=ts.update_count + 1)
+            if cuda:
+                marks[2].record()
+        finally:
+            if sync_debug_mode is not None:
+                torch.cuda.set_sync_debug_mode("default")
+        sync()
+        t2 = time.perf_counter()
+        out["rates"].append(env_steps / (t2 - t0))
+        if cuda:
+            out["rollout_ms"].append(marks[0].elapsed_time(marks[1]))
+            out["update_ms"].append(marks[1].elapsed_time(marks[2]))
+        else:
+            out["rollout_ms"].append((t1 - t0) * 1e3)
+            out["update_ms"].append((t2 - t1) * 1e3)
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    out["state"] = ts
+    return out

@@ -1,4 +1,5 @@
-"""The CUDA pulse kernel against its plain version, on the card.
+"""The CUDA pulse kernels (K1 in float32, K6 with bf16 stage arithmetic)
+against their plain versions, and the PPO trainer, on the card.
 
 Every test here carries the ``cuda`` marker and skips where torch sees no
 CUDA device. This file imports no JAX, so it also runs where the JAX
@@ -8,7 +9,8 @@ package is not installed; run it on a GPU machine with
 
 Deterministic results must agree at rtol/atol 2e-6 with n_substeps and
 failed identical (the kernel is built with --fmad=false and mirrors the
-plain version op for op, so they usually agree to the bit).
+plain version op for op, so they usually agree to the bit). K6 rounds every
+stage op to bf16 as a torch bf16 op does, and is held to the same bounds.
 """
 
 import pytest
@@ -18,7 +20,8 @@ from spintorque_tpu_torch.envs import SpinTorqueEnv
 from spintorque_tpu_torch.ops import cuda_integrator as ci
 from spintorque_tpu_torch.physics import IntegratorConfig, LLGSParams, integrate_pulse
 from spintorque_tpu_torch.physics import integrate_pulse_plain
-from spintorque_tpu_torch.utils import measure_env_throughput
+from spintorque_tpu_torch.rl import PPOConfig, PPOTrainer
+from spintorque_tpu_torch.utils import measure_env_throughput, measure_train_throughput
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -87,6 +90,42 @@ def test_kernel_matches_plain_thermal(cuda, cfg):
                   integrate_pulse_plain(m0, spans, cur, p, cfg, seed=77), tol=1e-5)
 
 
+@pytest.mark.parametrize("axis", [(0.0, 0.0, 1.0), (0.6, 0.0, 0.8)], ids=["plus_z", "tilted"])
+@pytest.mark.parametrize("method", ["euler", "heun", "rk4"])
+def test_bf16_kernel_matches_plain(cuda, method, axis):
+    """K6 against the plain bf16 version: deterministic at 2e-6, and thermal
+    (rk4 per stage, the same Philox stream) at 1e-5."""
+    m0, spans, cur = _setup(200, cuda, seed=4)
+    p = _params(cuda, axis)
+    cfg = IntegratorConfig(method=method, max_substeps=256, bf16_rhs=True)
+    before = ci.PULSE_BF16_LAUNCHES.count
+    _assert_close(integrate_pulse(m0, spans, cur, p, cfg),
+                  integrate_pulse_plain(m0, spans, cur, p, cfg))
+    assert ci.PULSE_BF16_LAUNCHES.count - before == 1
+    hot = cfg._replace(thermal=True, rk4_noise="per_stage")
+    _assert_close(integrate_pulse(m0, spans, cur, p, hot, seed=5),
+                  integrate_pulse_plain(m0, spans, cur, p, hot, seed=5), tol=1e-5)
+
+
+def _trainer(cuda, **env_kw):
+    env = SpinTorqueEnv(batch_size=64, device=cuda, max_duration=1e-10, max_steps=4, **env_kw)
+    return PPOTrainer(env, PPOConfig(rollout_steps=4, num_epochs=2, num_minibatches=2,
+                                     hidden_sizes=(32, 32)))
+
+
+@pytest.mark.parametrize("bf16_rhs", [False, True], ids=["k1", "k6"])
+def test_train_step_launches_the_pulse_kernel_without_host_sync(cuda, bf16_rhs):
+    trainer = _trainer(cuda, bf16_rhs=bf16_rhs)
+    ts = trainer.init(0)
+    k1, k6 = ci.PULSE_LAUNCHES.count, ci.PULSE_BF16_LAUNCHES.count
+    ts, metrics = trainer.train_step(ts)
+    launched = (ci.PULSE_LAUNCHES.count - k1, ci.PULSE_BF16_LAUNCHES.count - k6)
+    assert launched == ((0, 4) if bf16_rhs else (4, 0))
+    assert torch.isfinite(metrics["loss"]).item()
+    out = measure_train_throughput(trainer, warmup=0, steps=1, sync_debug_mode="error")
+    assert out["rollout_ms"][0] > 0 and out["update_ms"][0] > 0
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     m0, spans, cur = _setup(8, cuda)
     p = _params(cuda)
@@ -94,8 +133,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         integrate_pulse(tuple(x.double() for x in m0), spans.double(), cur.double(),
                         p.to(dtype=torch.float64), cfg)
-    with pytest.raises(NotImplementedError):
-        integrate_pulse(m0, spans, cur, p, cfg._replace(bf16_rhs=True))
+    bf16 = integrate_pulse(m0, spans, cur, p, cfg._replace(bf16_rhs=True))  # launches K6
+    assert all(torch.isfinite(x).all() for x in bf16.m)
     with pytest.raises(ValueError):
         integrate_pulse(m0, spans, cur, p, cfg._replace(method="dop853"))
     strided = torch.stack(m0, -1)

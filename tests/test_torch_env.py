@@ -218,7 +218,8 @@ def test_reset_and_thermal_step_on_cpu():
     assert torch.equal(t1.obs, t2.obs)  # the Philox key comes from (seed, counter)
     assert torch.isfinite(t1.obs).all()
     np.testing.assert_allclose(torch.linalg.vector_norm(n1.m, dim=-1).numpy(), 1.0, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        SpinTorqueEnv(batch_size=2, device="cpu", bf16_rhs=True)
+    env16 = SpinTorqueEnv(batch_size=2, device="cpu", max_duration=MAX_DURATION, bf16_rhs=True)
+    _, t16 = env16.step(env16.reset(seed=11)[0], action[:2])
+    assert torch.isfinite(t16.obs).all()
     with pytest.raises(ValueError):
         SpinTorqueEnv(batch_size=2, device="meta")
