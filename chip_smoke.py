@@ -4,32 +4,50 @@
     python3 chip_smoke.py
 
 run from the root of a checkout. It builds the port's CUDA kernels from the
-checkout's sources, holds each kernel against its plain PyTorch version on
-the card, drives the port's paths and checks that each launched its
-kernels: the env at B=4096 with the default config (K1), the same env with
-bf16_rhs=True (K6), and the PPO trainer at full width (B=4096, the default
-PPOConfig) over both, plus the JAX package's PPO learning gate. Each path's
-launch counts are set to 0 just before it and read just after. Any failed
-check raises and exits non-zero. The
-last two lines of standard output are the card's name and power limit as
-nvidia-smi reports them, and {"ok": true, "device": {...}}; the line before
-those lists each kernel with its launches, error and times. A longer record
-goes to build/chip_smoke.json.
+checkout's sources (one nvcc per source, in parallel, then one link), holds each kernel
+against its plain PyTorch version on the card, drives the port's paths and
+checks that each launched its kernels: the env at B=4096 with the default
+config (K1), the same env with bf16_rhs=True (K6), the PPO trainer at full
+width (B=4096, the default PPOConfig) over both, the JAX package's PPO
+learning gate, the data-parallel path (K5: the main config cut into four
+shards in one process; two gloo ranks sharing the card for an env block
+and a train step, held bit for bit to one process; one NCCL rank through
+the same calls), the switching and Neel-Brown sweeps at full width, and
+the op-chain micro-benchmark (K7). Each path's launch counts are set to 0
+just before it and read just after. Any failed check raises and exits
+non-zero. The last two lines of standard output are the card's name and
+power limit as nvidia-smi reports them, and {"ok": true, "device": {...}};
+the line before those lists each kernel with its launches, error, times and
+bound. A longer record goes to build/chip_smoke.json.
 
 Tolerances:
-  * deterministic pulses, kernel vs plain (K1 and K6 alike): rtol = atol =
-    2e-6 on m, with n_substeps and failed identical (the JAX package's
-    Pallas contract); both usually agree to the bit;
+  * deterministic pulses, kernel vs plain (K1, K6 and K5 alike): rtol =
+    atol = 2e-6 on m, with n_substeps and failed identical (the JAX
+    package's Pallas contract); both usually agree to the bit;
   * thermal pulses with the same Philox stream: rtol = atol = 1e-5. Both
     sides draw the same bits; only the transcendentals (logf and the
     plain version's log) may differ by an ulp, and the field such a
     difference perturbs is tiny against the anisotropy field;
+  * K5 against the unsharded K1 launch, and the two-rank env block against
+    the one-process block: bit for bit (each shard draws its rows of the
+    unsharded stream, and each env's integration is its own);
   * one env step on the card vs the CPU plain path, float32, thermal off:
     1e-4 on obs and reward, for the ulps by which the card's and the CPU's
     eager float32 ops may differ;
   * K6 against K1 on zero-current precession (<= 300 substeps, B=256):
     mean angle < 6 deg and max < 25 deg, the JAX package's bounds for its
-    bf16 kernel at the batch of its test.
+    bf16 kernel at the batch of its test;
+  * K7 against its plain chain: rtol 1e-6, atol 0, over ops.op_chain's
+    CHECK_STEPS steps on its check_input, per-op inputs where every step
+    moves x (on ones, the timing input, every chain sits at its fixed point
+    and a copy would agree); there a copy, a step more or fewer, or another
+    op differs by more than 1e-3.
+
+Bounds (``bound_ms``): the larger of the bytes a call must move over 3.35
+TB/s and its operations over 67 TFLOP/s (the H100 SXM's HBM rate and
+float32 rate outside the tensor cores), from this run's inputs: a pulse
+call's operations are its envs' substeps times the per-substep count of
+``ops.cuda_integrator.pulse_ops_per_substep``.
 """
 
 import dataclasses
@@ -37,12 +55,15 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 RECORD = {}
+PEAK_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
 
 def check(cond, msg):
@@ -56,6 +77,88 @@ def nvidia_smi_line():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time for ``ops`` operations and
+    ``nbytes`` bytes at the card's peaks."""
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def global_actions(batch, steps, seed):
+    """(steps, batch, 2) random continuous actions of the default env
+    config (the random policy's ranges), drawn on the host from ``seed``."""
+    import torch
+
+    u = torch.rand((steps, 2, batch), generator=torch.Generator().manual_seed(seed))
+    current = -2e6 + 4e6 * u[:, 0]
+    duration = 1e-12 + (5e-9 - 1e-12) * u[:, 1]
+    return torch.stack([current, duration], dim=-1)
+
+
+def env_block(env, seed, actions, mesh=None):
+    """Reset ``env`` from ``seed`` and step it through ``actions`` (global
+    rows; this rank's on a mesh). Returns the stacked obs, reward and m on
+    the host."""
+    import torch
+
+    from spintorque_tpu_torch.parallel import shard_batch
+
+    state, _ = env.reset(seed)
+    obs, rew, ms = [], [], []
+    for a in actions:
+        a = a if mesh is None else shard_batch(a, mesh)
+        state, ts = env.step(state, a.to(env.device))
+        obs.append(ts.obs)
+        rew.append(ts.reward)
+        ms.append(state.m)
+    return {k: torch.stack(v).cpu() for k, v in (("obs", obs), ("reward", rew), ("m", ms))}
+
+
+def data_parallel_rank(batch, seed, actions):
+    """One rank of the data-parallel phase: a 16-step env block and two PPO
+    train steps (one timed) at global batch ``batch`` with the default
+    configs, on this rank's rows; launch counts read around each."""
+    import torch
+
+    from spintorque_tpu_torch.envs import SpinTorqueEnv
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+    from spintorque_tpu_torch.parallel import make_mesh
+    from spintorque_tpu_torch.rl import PPOConfig, PPOTrainer
+    from spintorque_tpu_torch.utils import measure_train_throughput
+
+    counters = (ci.PULSE_SHARDED_LAUNCHES, ci.PULSE_LAUNCHES, ci.PULSE_BF16_LAUNCHES)
+    mesh = make_mesh()
+    env = SpinTorqueEnv(batch_size=batch, mesh=mesh)
+    for c in counters:
+        c.reset()
+    block = env_block(env, seed, actions, mesh)
+    torch.cuda.synchronize()
+    env_launches = [c.count for c in counters]
+    trainer = PPOTrainer(SpinTorqueEnv(batch_size=batch, mesh=mesh), PPOConfig())
+    for c in counters:
+        c.reset()
+    out = measure_train_throughput(trainer, warmup=1, steps=1)
+    train_launches = [c.count for c in counters]
+    params = torch.cat([p.detach().reshape(-1) for p in out["state"].network.parameters()])
+    return dict(block=block, env_launches=env_launches, train_launches=train_launches,
+                rank=mesh.data_rank, rows=env.local_batch_size, params=params.cpu(),
+                **{k: out[k] for k in ("rates", "rollout_ms", "update_ms", "metrics",
+                                       "world_size", "backend", "device")})
+
+
+def timed(fn):
+    """(result, ms) of one call of ``fn``, by CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, reps):
@@ -79,6 +182,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
     import numpy as np
+    import torch.distributed as dist
     from scipy import integrate as sp_integrate
     from scipy import stats
     from torch.autograd import DeviceType
@@ -89,9 +193,11 @@ def main():
     from spintorque_tpu_torch.envs import SpinTorqueEnv, SpinTorqueEnvConfig
     from spintorque_tpu_torch.ops import _build
     from spintorque_tpu_torch.ops import cuda_integrator as ci
-    from spintorque_tpu_torch.parallel import random_policy
+    from spintorque_tpu_torch.ops import op_chain as oc
+    from spintorque_tpu_torch.parallel import initialize, make_mesh, random_policy, spawn_ranks
     from spintorque_tpu_torch.physics import IntegratorConfig, LLGSParams
     from spintorque_tpu_torch.physics import integrate_pulse_plain
+    from spintorque_tpu_torch.research import parameter_ladder_sweep, switching_probability_diagram
     from spintorque_tpu_torch.rl import PPOConfig, PPOTrainer
     from spintorque_tpu_torch.utils import measure_env_throughput, measure_train_throughput
 
@@ -107,7 +213,7 @@ def main():
     t0 = time.perf_counter()
     lib = _build.load_library()
     print(f"build: {lib.path.name} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {lib.build_seconds:.1f} s)")
+          f"(nvcc, one per source in parallel, then one link: {lib.build_seconds:.1f} s)")
     regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
     print(f"ptxas: {len(regs)} kernels, registers per thread "
           f"{sorted({int(r.split('Used ')[1].split()[0]) for r in regs})}")
@@ -117,7 +223,11 @@ def main():
     check(probe_err == 0.0, f"probe disagrees with x + 1 by {probe_err}")
     probe_ms = cuda_ms(lambda: ci.probe_add_one(x), 100)
     probe_plain_ms = cuda_ms(lambda: ci.probe_add_one_plain(x), 100)
-    print(f"probe: ok, max_abs_err {probe_err}, {probe_ms:.4f} ms vs plain {probe_plain_ms:.4f} ms")
+    probe_library_ms = cuda_ms(lambda: torch.add(x, 1.0), 100)
+    probe_bound = bound(x.numel(), 2 * 4 * x.numel())
+    print(f"probe: ok, max_abs_err {probe_err}, {probe_ms:.4f} ms vs plain "
+          f"{probe_plain_ms:.4f} ms, torch.add {probe_library_ms:.4f} ms, "
+          f"bound {probe_bound[0]:.6f} ms  [{smi}]")
 
     gen = torch.Generator().manual_seed(1234)
 
@@ -293,17 +403,22 @@ def main():
     # K1 and K6 at the main path's shapes: default env config, random
     # actions. plus_z is resolved, as the env resolves it at construction;
     # left unresolved, the wrapper reads the axis back, a host sync per call.
+    # The plain versions are timed at B=4096, thermal (14-28 s a call), and
+    # their results held to the kernels' at the thermal tolerance: the only
+    # comparison at the main path's spans and 5001 max substeps.
     main_cfg = SpinTorqueEnvConfig().integrator()
+    p_main = dataclasses.replace(params(), plus_z=True)
     timing = {}
     for B in (4096, 65536):
         m0, spans, cur = setup(B, lo=1e-12, hi=5e-9, cur=2e6)
-        p = dataclasses.replace(params(), plus_z=True)
-        for label, cfg in (("thermal", main_cfg), ("deterministic", main_cfg._replace(thermal=False))):
+        det_cfg = main_cfg._replace(thermal=False)
+        for label, cfg in (("thermal", main_cfg), ("deterministic", det_cfg)):
             def k1():
-                return ci.integrate_pulse_cuda(m0, spans, cur, p, cfg, seed=5)
+                return ci.integrate_pulse_cuda(m0, spans, cur, p_main, cfg, seed=5)
 
             def k6():
-                return ci.integrate_pulse_cuda(m0, spans, cur, p, cfg._replace(bf16_rhs=True), seed=5)
+                return ci.integrate_pulse_cuda(m0, spans, cur, p_main, cfg._replace(bf16_rhs=True),
+                                               seed=5)
 
             k1()
             k6()
@@ -311,14 +426,24 @@ def main():
             k1_ms = cuda_ms(k1, 3)
             k6_ms = cuda_ms(k6, 6)
             k1_ms = (k1_ms + cuda_ms(k1, 3)) / 2
-            plain_ms = cuda_ms(lambda: integrate_pulse_plain(m0, spans, cur, p, cfg, seed=5), 1)
-            row = dict(ms=k1_ms, plain_ms=plain_ms, bf16_ms=k6_ms)
-            line = (f"K1 {label} B={B} max_substeps={cfg.max_substeps}: "
-                    f"kernel {k1_ms:.3f} ms, plain {plain_ms:.1f} ms; K6 {k6_ms:.3f} ms")
+            row = dict(ms=k1_ms, bf16_ms=k6_ms)
+            line = f"K1 {label} B={B} max_substeps={cfg.max_substeps}: kernel {k1_ms:.3f} ms"
             if B == 4096 and label == "thermal":
-                row["bf16_plain_ms"] = cuda_ms(lambda: integrate_pulse_plain(
-                    m0, spans, cur, p, cfg._replace(bf16_rhs=True), seed=5), 1)
-                line += f", plain bf16 {row['bf16_plain_ms']:.1f} ms"
+                want, row["plain_ms"] = timed(
+                    lambda: integrate_pulse_plain(m0, spans, cur, p_main, cfg, seed=5))
+                got = k1()
+                row["max_abs_err"] = compare(got, want, 1e-5)
+                want, row["bf16_plain_ms"] = timed(lambda: integrate_pulse_plain(
+                    m0, spans, cur, p_main, cfg._replace(bf16_rhs=True), seed=5))
+                row["bf16_max_abs_err"] = compare(k6(), want, 1e-5)
+                row["bound_ms"], row["bound_by"] = bound(*ci.pulse_work(got.n_substeps, cfg, True))
+                line += (f", plain {row['plain_ms']:.1f} ms, max_abs_err "
+                         f"{row['max_abs_err']:.3e}; K6 {k6_ms:.3f} ms, plain bf16 "
+                         f"{row['bf16_plain_ms']:.1f} ms, max_abs_err "
+                         f"{row['bf16_max_abs_err']:.3e}; bound {row['bound_ms']:.4f} ms "
+                         f"({row['bound_by']})")
+            else:
+                line += f"; K6 {k6_ms:.3f} ms"
             timing[f"{label}_B{B}"] = row
             print(f"{line}  [{smi}]")
     RECORD["k1_timing"] = timing
@@ -490,22 +615,267 @@ def main():
     check(obs_diff < 1e-4 and rew_diff < 1e-4, "card and CPU steps disagree")
     RECORD["card_vs_cpu_step"] = dict(obs=obs_diff, reward=rew_diff)
 
+    # ------------- 10. K5 in one process: the main config cut into shards
+    # B=4096 in four shards of 1024, each launched with env_offset = its
+    # first row, against the unsharded K1 launch bit for bit (m, n, failed)
+    # at the main path's spans (1 ps-5 ns, 5001 max substeps), thermal and
+    # deterministic (+z, tilted, per-env); then against the same cut of the
+    # plain version at spans of 50-300 ps (max_substeps 512).
+    B, W = 4096, 4
+    n = B // W
+
+    def shards(m0, spans, cur, p, cfg, run, **kw):
+        def cut(x, rows):
+            per_env = x.ndim == 2 or (x.ndim == 1 and x.shape[0] == B)
+            return x[rows].contiguous() if per_env else x
+
+        out = []
+        for r in range(W):
+            rows = slice(r * n, (r + 1) * n)
+            pr = dataclasses.replace(p, **{f.name: cut(getattr(p, f.name), rows)
+                                           for f in dataclasses.fields(p) if f.name != "plus_z"})
+            out.append(run(tuple(c[rows].contiguous() for c in m0), spans[rows].contiguous(),
+                           cur[rows].contiguous(), pr, cfg, env_offset=r * n, **kw))
+        return out
+
+    def k5(*args, **kw):
+        return ci.integrate_pulse_cuda(*args, sharded=True, **kw)
+
+    def plain(*args, seed=None, env_offset=0):
+        return integrate_pulse_plain(*args, seed=seed, env_offset=env_offset)
+
+    k5_cases = []
+    for label, p, cfg in (
+        ("thermal +z", p_main, main_cfg),
+        ("deterministic +z", p_main, main_cfg._replace(thermal=False)),
+        ("deterministic tilted", params((0.6, 0.0, 0.8)), main_cfg._replace(thermal=False)),
+        ("deterministic per-env", per_env_params(B), main_cfg._replace(thermal=False)),
+    ):
+        m0, spans, cur = setup(B, lo=1e-12, hi=5e-9, cur=2e6)
+        ref = ci.integrate_pulse_cuda(m0, spans, cur, p, cfg, seed=17)
+        for r, out in enumerate(shards(m0, spans, cur, p, cfg, k5, seed=17)):
+            rows = slice(r * n, (r + 1) * n)
+            check(all(torch.equal(a, b[rows]) for a, b in zip(out.m, ref.m))
+                  and torch.equal(out.n_substeps, ref.n_substeps[rows])
+                  and torch.equal(out.failed, ref.failed[rows]),
+                  f"K5 shard {r} differs from the unsharded K1 launch ({label})")
+        k5_cases.append(label)
+        print(f"K5 {label} B={B} in {W} shards of {n}: bit for bit with the unsharded K1 launch")
+    k5_err = 0.0
+    for label, p, cfg, tol in (
+        ("thermal +z", p_main, main_cfg._replace(max_substeps=512), 1e-5),
+        ("deterministic +z", p_main, main_cfg._replace(max_substeps=512, thermal=False), 2e-6),
+        ("deterministic tilted", params((0.6, 0.0, 0.8)),
+         main_cfg._replace(max_substeps=512, thermal=False), 2e-6),
+        ("deterministic per-env", per_env_params(B),
+         main_cfg._replace(max_substeps=512, thermal=False), 2e-6),
+    ):
+        m0, spans, cur = setup(B)
+        for a, b in zip(shards(m0, spans, cur, p, cfg, k5, seed=23),
+                        shards(m0, spans, cur, p, cfg, plain, seed=23)):
+            k5_err = max(k5_err, compare(a, b, tol))
+        print(f"K5 {label} B={B} in {W} shards vs the sharded plain version: "
+              f"max_abs_err {k5_err:.3e}")
+    RECORD["k5_bitwise_cases"] = k5_cases
+
+    # K1 at the per-rank batches of 4 and 2 cards and at one card's, and K5
+    # on rank 1's shard of two, at the main config.
+    m0, spans, cur = setup(4096, lo=1e-12, hi=5e-9, cur=2e6)
+    k1_by_batch = {}
+    for b in (1024, 2048, 4096):
+        sub = tuple(c[:b].contiguous() for c in m0)
+        k1_by_batch[b] = cuda_ms(lambda: ci.integrate_pulse_cuda(
+            sub, spans[:b].contiguous(), cur[:b].contiguous(), p_main, main_cfg, seed=5), 5)
+    shard = (tuple(c[2048:].contiguous() for c in m0), spans[2048:].contiguous(),
+             cur[2048:].contiguous())
+
+    def k5_shard():
+        return ci.integrate_pulse_cuda(*shard, p_main, main_cfg, seed=5, env_offset=2048,
+                                       sharded=True)
+
+    k5_shard()
+    k5_ms = cuda_ms(k5_shard, 5)
+    want, k5_plain_ms = timed(lambda: integrate_pulse_plain(*shard, p_main, main_cfg, seed=5,
+                                                            env_offset=2048))
+    got = k5_shard()
+    k5_main_err = compare(got, want, 1e-5)
+    k5_err = max(k5_err, k5_main_err)
+    RECORD["k5_max_abs_err"] = k5_err
+    k5_bound = bound(*ci.pulse_work(got.n_substeps, main_cfg, True))
+    print(f"K1 thermal main config: B=1024 {k1_by_batch[1024]:.3f} ms, B=2048 "
+          f"{k1_by_batch[2048]:.3f} ms, B=4096 {k1_by_batch[4096]:.3f} ms; K5 on rank 1's "
+          f"shard of 2 (B=2048, env_offset 2048) {k5_ms:.3f} ms, plain {k5_plain_ms:.1f} ms, "
+          f"max_abs_err {k5_main_err:.3e}; bound {k5_bound[0]:.4f} ms  [{smi}]")
+    RECORD["k1_ms_by_batch"] = k1_by_batch
+    RECORD["k5_timing"] = dict(ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound[0],
+                               max_abs_err=k5_main_err)
+
+    # ---------------- 11. the data-parallel path: two ranks on one card
+    # gloo (NCCL takes one rank per device), rendezvous by file:// under
+    # build/; the library is built above, so the ranks only load it. The
+    # one-process 16-step block at B=4096 is the reference.
+    B, seed = 4096, 7
+    actions = global_actions(B, 16, seed=8)
+    ref_block = env_block(SpinTorqueEnv(batch_size=B), seed, actions)
+    work = os.path.join(ROOT, "build")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(data_parallel_rank, 2, args=(B, seed, actions), backend="gloo",
+                        timeout=600.0, workdir=work)
+    dp_wall = time.perf_counter() - t0
+    for key in ("obs", "reward", "m"):
+        got = torch.cat([r["block"][key] for r in sorted(ranks, key=lambda r: r["rank"])], dim=1)
+        check(torch.equal(got, ref_block[key]),
+              f"two-rank env block differs from one process in {key}")
+    check(torch.equal(ranks[0]["params"], ranks[1]["params"]),
+          "the two ranks hold different parameters after the train steps")
+    for r in ranks:
+        check(r["rows"] == B // 2 and r["world_size"] == 2 and r["backend"] == "gloo",
+              f"rank layout: {r['rows']} rows, {r['world_size']} ranks, {r['backend']}")
+        check(r["env_launches"] == [16, 0, 0],
+              f"env block launched K5/K1/K6 {r['env_launches']} times, want [16, 0, 0]")
+        check(r["train_launches"] == [32, 0, 0],
+              f"2 train steps launched K5/K1/K6 {r['train_launches']} times, want [32, 0, 0]")
+        check(all(np.isfinite(v) for v in r["metrics"].values()), f"non-finite metrics {r}")
+    dp_launches = sum(r["env_launches"][0] + r["train_launches"][0] for r in ranks)
+    r0 = ranks[0]
+    print(f"data-parallel, two ranks sharing one card (gloo), global B=4096: 16-step env block "
+          f"bit for bit with one process (obs, reward, m); 2 PPO train steps with PPOConfig(), "
+          f"parameters equal on both ranks; K5 launched 16 + 32 times per rank; global "
+          f"{r0['rates'][0]:.0f} train env-steps/s on two ranks sharing one card (not a "
+          f"scaling number), rollout {r0['rollout_ms'][0]:.1f} ms, update "
+          f"{r0['update_ms'][0]:.1f} ms; {dp_wall:.1f} s with spawning  [{smi}]")
+    RECORD["two_ranks_one_card"] = dict(
+        rates=[r["rates"] for r in ranks], rollout_ms=[r["rollout_ms"] for r in ranks],
+        update_ms=[r["update_ms"] for r in ranks], metrics=r0["metrics"], wall_s=dp_wall,
+        k5_launches=dp_launches)
+
+    # One NCCL rank (world size 1) through the same calls, in this process.
+    initialize(init_method="file://" + os.path.join(tempfile.mkdtemp(dir=work), "rendezvous"),
+               world_size=1, rank=0, backend="nccl")
+    try:
+        mesh = make_mesh()
+        check(mesh.backend == "nccl", f"backend {mesh.backend}")
+        trainer = PPOTrainer(SpinTorqueEnv(batch_size=B, mesh=mesh), PPOConfig())
+        for c in (ci.PULSE_SHARDED_LAUNCHES, ci.PULSE_LAUNCHES):
+            c.reset()
+        out = measure_train_throughput(trainer, warmup=1, steps=1)
+        nccl_launches = (ci.PULSE_SHARDED_LAUNCHES.count, ci.PULSE_LAUNCHES.count)
+    finally:
+        dist.destroy_process_group()
+    check(nccl_launches == (32, 0), f"NCCL trainer launched K5/K1 {nccl_launches}")
+    check(all(np.isfinite(v) for v in out["metrics"].values()), "non-finite NCCL metrics")
+    print(f"data-parallel, one NCCL rank (world size 1), B=4096: 2 train steps, K5 launched "
+          f"{nccl_launches[0]} times; {out['rates'][0]:.0f} train env-steps/s, rollout "
+          f"{out['rollout_ms'][0]:.1f} ms, update {out['update_ms'][0]:.1f} ms  [{smi}]")
+    RECORD["nccl_world1"] = dict(rates=out["rates"], rollout_ms=out["rollout_ms"],
+                                 update_ms=out["update_ms"], metrics=out["metrics"])
+    dp_launches += nccl_launches[0]
+
+    # ------------------------------------------ 12. sweeps at full width
+    # The JAX package's sweep device (tests/unit/test_research_sweeps.py).
+    sweep_p = params(damping=0.05, volume=1e-22)
+    ci.PULSE_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    currents, durations = np.linspace(-2e7, 2e7, 16), np.linspace(1e-10, 5e-9, 16)
+    out = switching_probability_diagram(sweep_p, currents, durations, n_ensemble=256,
+                                        temperature=300.0, seed=1)
+    p_sw, failed_frac = out["p_switch"].cpu().numpy(), out["failed_fraction"].cpu().numpy()
+    diagram_s = time.perf_counter() - t0
+    valid = failed_frac < 1.0
+    check(p_sw.shape == (16, 16) and out["final_mz"].shape == (65536,), "diagram shapes")
+    check(bool(np.all((p_sw[valid] >= 0) & (p_sw[valid] <= 1)))
+          and bool(np.all(np.isnan(p_sw[~valid]))), "p_switch outside [0, 1] or nan misplaced")
+    check(bool(np.all(p_sw[0] > 0.9)), f"J=-2e7 does not switch: {p_sw[0]}")
+    check(bool(torch.isfinite(out["final_mz"]).all()), "non-finite final m_z")
+    # The JAX test's own grid and checks (:29-43).
+    small = switching_probability_diagram(sweep_p, [-2e7, 0.0, 2e7], [2e-10, 1e-9],
+                                          n_ensemble=16, temperature=300.0, max_substeps=1024,
+                                          seed=1)["p_switch"].cpu().numpy()
+    check(bool(np.all((small >= 0) & (small <= 1)) and np.all(small[0] > 0.9)
+               and np.all(small[1] < 0.1) and np.all(small[2] < 0.1)),
+          f"the JAX test's switching checks fail: {small}")
+    ms, vol, temp = 800e3, 1e-24, 300.0
+    k_ladder = 0.5 * MU0 * ms**2 + np.array([1.0, 3.0, 8.0, 20.0]) * KB_SOLVER * temp / vol
+    t0 = time.perf_counter()
+    ladder = parameter_ladder_sweep(params(damping=0.5, volume=vol),
+                                    {"uniaxial_anisotropy": k_ladder}, current=0.0,
+                                    duration=4e-9, n_ensemble=1024, temperature=temp, seed=5)
+    p_lad = ladder["p_switch"].cpu().numpy()
+    ladder_s = time.perf_counter() - t0
+    check(p_lad[0] > 0.25 and p_lad[1] > p_lad[2] + 0.1 and p_lad[3] < 0.02
+          and p_lad[0] > p_lad[1] > p_lad[2] >= p_lad[3],
+          f"the Neel-Brown ladder is not monotone in Delta: {p_lad}")
+    sweep_launches = ci.PULSE_LAUNCHES.count
+    check(sweep_launches == 3, f"the sweeps launched K1 {sweep_launches} times, want 3")
+    print(f"sweeps: switching diagram 16 x 16 x 256 = 65536 trajectories (heun, physical) in "
+          f"{diagram_s * 1e3:.1f} ms wall, J=-2e7 row p >= {p_sw[0].min():.3f}, "
+          f"{int((~valid).sum())} points all failed (|J| < 2e6: the reference's float32 "
+          f"freeze); JAX test grid p {small.round(3).tolist()}; Neel-Brown ladder n_ensemble "
+          f"1024 p {p_lad.round(4).tolist()} in {ladder_s * 1e3:.1f} ms wall; K1 launched "
+          f"{sweep_launches} times  [{smi}]")
+    RECORD["sweeps"] = dict(p_switch=p_sw.tolist(), failed_fraction=failed_frac.tolist(),
+                            diagram_s=diagram_s, small=small.tolist(), ladder=p_lad.tolist(),
+                            ladder_s=ladder_s)
+
+    # ------------------------------------- 13. K7: per-op prices on the card
+    oc.OP_CHAIN_LAUNCHES.reset()
+    costs = oc.measure_op_costs()
+    k7_launches = oc.OP_CHAIN_LAUNCHES.count
+    check(k7_launches > 0, "measure_op_costs launched no chain")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k7_err = 0.0
+    for threads, block in ((1024, 1024), (sms * 2048, 256)):
+        for op in oc.OPS:
+            xk = oc.check_input(op, threads, device=dev)
+            got = oc.op_chain(xk, op, oc.CHECK_STEPS, block)
+            want = oc.op_chain_plain(xk, op, oc.CHECK_STEPS)
+            torch.testing.assert_close(got, want, rtol=oc.CHECK_RTOL, atol=0.0,
+                                       msg=lambda m, op=op: f"K7 {op}: {m}")
+            k7_err = max(k7_err, float((got - want).abs().max()))
+    xk = torch.ones(sms * 2048, dtype=torch.float32, device=dev)
+    k7_ms = cuda_ms(lambda: oc.op_chain(xk, "base2", 20_000, 256), 5)
+    k7_plain_ms = cuda_ms(lambda: oc.op_chain_plain(xk, "base2", 20_000), 1)
+    k7_bound = bound(xk.numel() * 20_000 * 2, 2 * 4 * xk.numel())
+    for shape, key in (("latency, 1 block of 1024", "latency_ns"),
+                       ("throughput, per 1024 lanes", "throughput_ns_per_1024")):
+        print(f"K7 ns/op ({shape}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in costs[key].items()) + f"  [{smi}]")
+    print(f"K7 base2 x 20000 steps on {xk.numel()} threads: {k7_ms:.3f} ms, plain "
+          f"{k7_plain_ms:.1f} ms, bound {k7_bound[0]:.4f} ms; {k7_launches} launches, "
+          f"max_abs_err {k7_err:.1e} (check inputs, {oc.CHECK_STEPS} steps)  [{smi}]")
+    RECORD["op_costs"] = costs
+
+    t_main = timing["thermal_B4096"]
+    pulse = "spintorque_tpu_torch/csrc/pulse_integrator.cu"
     kernels = [
-        dict(name="llgs_pulse", route="cuda",
-             source="spintorque_tpu_torch/csrc/pulse_integrator.cu",
+        dict(name="llgs_pulse", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:283",
-             launches=launches["llgs_pulse"], max_abs_err=det_err,
-             ms=timing["thermal_B4096"]["ms"], plain_ms=timing["thermal_B4096"]["plain_ms"]),
-        dict(name="llgs_pulse_bf16", route="cuda",
-             source="spintorque_tpu_torch/csrc/pulse_integrator.cu",
+             launches=launches["llgs_pulse"],
+             max_abs_err=max(det_err, thermal_err, t_main["max_abs_err"]),
+             ms=t_main["ms"], plain_ms=t_main["plain_ms"], bound_ms=t_main["bound_ms"],
+             bound_by=t_main["bound_by"], library_ms=None),
+        dict(name="llgs_pulse_bf16", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:316",
-             launches=launches["llgs_pulse_bf16"], max_abs_err=bf16_err,
-             ms=timing["thermal_B4096"]["bf16_ms"], plain_ms=timing["thermal_B4096"]["bf16_plain_ms"]),
-        dict(name="probe_add_one", route="cuda",
-             source="spintorque_tpu_torch/csrc/pulse_integrator.cu",
+             launches=launches["llgs_pulse_bf16"],
+             max_abs_err=max(bf16_err, bf16_thermal_err, t_main["bf16_max_abs_err"]),
+             ms=t_main["bf16_ms"], plain_ms=t_main["bf16_plain_ms"], bound_ms=t_main["bound_ms"],
+             bound_by=t_main["bound_by"], library_ms=None),
+        dict(name="probe_add_one", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:118",
              launches=launches["probe_add_one"], max_abs_err=probe_err,
-             ms=probe_ms, plain_ms=probe_plain_ms),
+             ms=probe_ms, plain_ms=probe_plain_ms, bound_ms=probe_bound[0],
+             bound_by=probe_bound[1], library_ms=probe_library_ms),
+        dict(name="llgs_pulse_sharded", route="cuda", source=pulse,
+             replaces="spintorque_tpu/ops/pallas_integrator.py:720",
+             launches=dp_launches, max_abs_err=k5_err,
+             ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound[0], bound_by=k5_bound[1],
+             library_ms=None),
+        dict(name="op_chain", route="cuda", source="spintorque_tpu_torch/csrc/op_chain.cu",
+             replaces="scripts/bench_vpu_op_costs.py:43",
+             launches=k7_launches, max_abs_err=k7_err,
+             ms=k7_ms, plain_ms=k7_plain_ms, bound_ms=k7_bound[0], bound_by=k7_bound[1],
+             library_ms=None),
     ]
     RECORD["kernels"] = kernels
     out_dir = os.path.join(ROOT, "build")
@@ -515,8 +885,8 @@ def main():
 
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
-    # One device driven, whatever the machine holds.
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

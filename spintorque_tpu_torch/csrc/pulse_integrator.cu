@@ -22,7 +22,16 @@
 // by descending n (torch.argsort) and passes the permutation: thread t reads and
 // writes env perm[t], so a warp holds envs of similar n and runs to its own
 // longest, as a TPU tile ran to its own bound. Thermal counters use the env's
-// original index, so the stream depends on neither the sort nor the block size.
+// global index env_offset + perm[t], so the stream depends on neither the sort
+// nor the block size.
+//
+// K5, the sharded pulse of the data-parallel path, is this kernel launched on
+// one shard of the batch (replacing _integrate_pulse_pallas_sharded and
+// _shard_seed, pallas_integrator.py:689-746, which run K1 per shard under
+// shard_map with a per-shard seed offset). Each shard sorts its own envs, and
+// env_offset, the shard's first global row, keys the noise: a shard draws
+// exactly its rows of the unsharded stream, so a sharded pulse equals the
+// unsharded one bit for bit, thermal included. Its bound is K1's.
 //
 // K6 is the same kernel with the stage value type T = Bf16: the coefficients,
 // dt, a bf16 copy of the state and the thermal field (sigma * normal in float,
@@ -72,6 +81,7 @@ struct PulseArgs {
   int batch;
   uint32_t seed_lo;
   uint32_t seed_hi;
+  uint32_t env_offset;  // global index of env 0 of this batch (K5's shard offset)
 };
 
 // A bf16 value; each operation is a PyTorch bf16 op: float opmath, one
@@ -181,6 +191,8 @@ __global__ void __launch_bounds__(kMaxBlock) pulse_kernel(const PulseArgs a) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= a.batch) return;
   const int64_t env = a.perm[t];
+  // The Philox counter's env word: the wrapper checks env_offset + batch <= 2^32.
+  const uint32_t key_env = a.env_offset + static_cast<uint32_t>(env);
 
   Coeffs<T> c;
   c.h_k = from_f32<T>(a.h_k[env]);
@@ -207,12 +219,10 @@ __global__ void __launch_bounds__(kMaxBlock) pulse_kernel(const PulseArgs a) {
     T h[12];
     if (THERMAL) {
       float g[12];
-      normals4(static_cast<uint32_t>(env), static_cast<uint32_t>(i), 0u, a.seed_lo, a.seed_hi, g);
+      normals4(key_env, static_cast<uint32_t>(i), 0u, a.seed_lo, a.seed_hi, g);
       if (PER_STAGE) {
-        normals4(static_cast<uint32_t>(env), static_cast<uint32_t>(i), 1u, a.seed_lo, a.seed_hi,
-                 g + 4);
-        normals4(static_cast<uint32_t>(env), static_cast<uint32_t>(i), 2u, a.seed_lo, a.seed_hi,
-                 g + 8);
+        normals4(key_env, static_cast<uint32_t>(i), 1u, a.seed_lo, a.seed_hi, g + 4);
+        normals4(key_env, static_cast<uint32_t>(i), 2u, a.seed_lo, a.seed_hi, g + 8);
 #pragma unroll
         for (int k = 0; k < 12; ++k) h[k] = from_f32<T>(sigma * g[k]);
       } else {
@@ -333,20 +343,21 @@ __global__ void probe_add_one_kernel(const float* x, float* y, int count) {
 }  // namespace spintorque
 
 // Plain C entry points, bound with ctypes. Each launches on `stream` and
-// returns cudaGetLastError() (0 = launched). bf16 != 0 selects K6.
+// returns cudaGetLastError() (0 = launched). bf16 != 0 selects K6; env_offset
+// is the global index of env 0 (nonzero on every shard of K5 but the first).
 extern "C" int spintorque_pulse_integrate(
     const float* mx0, const float* my0, const float* mz0, const int32_t* n, const float* dt,
     const float* sigma, const float* h_k, const float* ms, const float* neg_gamma_eff,
     const float* alpha, const float* stt, const float* ex, const float* ey, const float* ez,
     const int64_t* perm, float* mx, float* my, float* mz, bool* failed, int batch, int method,
     int thermal, int per_stage, int plus_z, int bf16, unsigned int seed_lo, unsigned int seed_hi,
-    int block, void* stream) {
+    unsigned int env_offset, int block, void* stream) {
   using namespace spintorque;
   if (batch <= 0 || block <= 0 || block > kMaxBlock || block % 32 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const PulseArgs a{mx0, my0, mz0, n, dt, sigma, h_k, ms, neg_gamma_eff, alpha,
-                    stt, ex, ey, ez, perm, mx, my, mz, failed, batch, seed_lo, seed_hi};
+  const PulseArgs a{mx0, my0, mz0, n, dt, sigma, h_k, ms, neg_gamma_eff, alpha, stt, ex, ey,
+                    ez, perm, mx, my, mz, failed, batch, seed_lo, seed_hi, env_offset};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return static_cast<int>(launch_type<Bf16>(a, method, thermal, per_stage, plus_z, block, s));

@@ -11,6 +11,13 @@ On CUDA the step reads nothing back from the device: constants live on the
 device from construction, the per-step Philox key of the thermal noise comes
 from a host-side step counter, and auto-reset draws from a torch.Generator
 on the device.
+
+On a mesh (``mesh=``, ``parallel.make_mesh``) ``batch_size`` stays the global
+B and each rank holds its B/W rows: the pulse runs on the rank's shard (K5
+on CUDA) with the shard's global env indices in the thermal stream, and
+reset and auto-reset draw the global batch from the seed and keep the
+rank's rows. A sharded step therefore equals the one-process step bit for
+bit, thermal noise and auto-reset included.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from ..devices.resistance import pulse_energy as _pulse_energy
 from ..devices.resistance import resistance as _resistance
 from ..ops.cuda_integrator import cuda_kernel_available, cuda_supported, is_plus_z
 from ..ops.philox import derive_seed
+from ..parallel.mesh import local_batch_size, resolve_device, shard_batch
 from ..physics.integrator import (
     IntegratorConfig,
     check_config,
@@ -124,15 +132,22 @@ class SpinTorqueEnv:
     """Vectorized spin-torque device control environment.
 
     Usage:
-        env = SpinTorqueEnv(batch_size=4096, device="cuda")
+        env = SpinTorqueEnv(batch_size=4096)
         state, obs = env.reset(seed=0)
         state, ts = env.step(state, actions)
 
-    ``device`` is required. On "cuda" the configuration must be one the
-    kernel covers (float32, a known method, a finite nonzero easy axis), and
-    construction builds the kernel library and probes it; both raise on
-    failure. ``bf16_rhs=True`` launches the kernel's bf16 variant (K6) on
-    CUDA and runs its plain bf16 version on the CPU.
+    ``device`` is "cuda" unless the caller asks for "cpu" (or the mesh's
+    device when ``mesh`` is given). On "cuda" the
+    configuration must be one the kernel covers (float32, a known method, a
+    finite nonzero easy axis), and construction builds the kernel library
+    and probes it; both raise on failure, as does the lack of a card.
+    ``bf16_rhs=True`` launches the kernel's bf16 variant (K6) on CUDA and
+    runs its plain bf16 version on the CPU.
+
+    ``mesh`` (a ``parallel.Mesh``) shards the env: ``batch_size`` is the
+    global B, which must divide the mesh's data axis, the env runs on the
+    mesh's device, and states, observations and actions hold this rank's
+    ``local_batch_size`` rows.
     """
 
     def __init__(
@@ -144,16 +159,17 @@ class SpinTorqueEnv:
         reward_components: Optional[Dict[str, Dict]] = None,
         config: Optional[SpinTorqueEnvConfig] = None,
         *,
-        device,
+        device=None,
+        mesh=None,
         **config_overrides,
     ):
         if config is None:
             config = SpinTorqueEnvConfig(device_type=device_type, **config_overrides)
         self.config = config
         self.batch_size = batch_size
-        self.device = torch.device(device)
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"SpinTorqueEnv runs on cuda or cpu, not {self.device}")
+        self.device = resolve_device(device, mesh)
+        self.mesh = mesh
+        self.local_batch_size = batch_size if mesh is None else local_batch_size(batch_size, mesh)
         dtype = config.torch_dtype
 
         self.device_params: DeviceParams = make_device_params(
@@ -196,7 +212,7 @@ class SpinTorqueEnv:
         """A fresh batch; ``seed`` seeds the reset generator and keys the
         thermal noise."""
         dtype = self.config.torch_dtype
-        B = self.batch_size
+        B = self.local_batch_size
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
         stats = (
@@ -207,8 +223,8 @@ class SpinTorqueEnv:
             return torch.zeros((B,), dtype=dtype, device=self.device)
 
         state = EnvState(
-            m=self._sample_m(generator, B),
-            target=self._sample_target(generator, B),
+            m=self._sample_m(generator),
+            target=self._sample_target(generator),
             step=torch.zeros((B,), dtype=torch.int32, device=self.device),
             total_energy=zeros(),
             last_current=zeros(),
@@ -235,19 +251,25 @@ class SpinTorqueEnv:
 
     # ------------------------------------------------------------- internals
 
-    def _sample_m(self, generator, batch) -> Tensor:
-        """Random initial magnetization: normal(0, 1, 3) normalized."""
-        m = torch.randn(
-            (batch, 3), generator=generator, dtype=self.config.torch_dtype, device=self.device
-        )
-        norm = torch.linalg.vector_norm(m, dim=-1, keepdim=True)
-        return m / torch.clamp_min(norm, 1e-12)
+    def _rows(self, x: Tensor) -> Tensor:
+        """This rank's rows of a global batch draw (all of it without a
+        mesh): every rank draws the whole batch, so its generator advances
+        as the one-process env's does."""
+        return x if self.mesh is None else shard_batch(x, self.mesh)
 
-    def _sample_target(self, generator, batch) -> Tensor:
+    def _sample_m(self, generator) -> Tensor:
+        """Random initial magnetization: normal(0, 1, 3) normalized."""
+        m = torch.randn((self.batch_size, 3), generator=generator, dtype=self.config.torch_dtype,
+                        device=self.device)
+        norm = torch.linalg.vector_norm(m, dim=-1, keepdim=True)
+        return self._rows(m / torch.clamp_min(norm, 1e-12))
+
+    def _sample_target(self, generator) -> Tensor:
         idx = torch.randint(
-            0, self.target_states.shape[0], (batch,), generator=generator, device=self.device
+            0, self.target_states.shape[0], (self.batch_size,), generator=generator,
+            device=self.device,
         )
-        return self.target_states[idx]
+        return self.target_states[self._rows(idx)]
 
     def _decode_action(self, action) -> Tuple[Tensor, Tensor]:
         """Action -> (J, duration) with the safety clamps."""
@@ -255,15 +277,15 @@ class SpinTorqueEnv:
         dtype = cfg.torch_dtype
         if cfg.action_mode == "continuous":
             action = torch.as_tensor(action, dtype=dtype, device=self.device)
-            if action.ndim == 1 and self.batch_size == 1 and action.shape[0] == 2:
+            if action.ndim == 1 and self.local_batch_size == 1 and action.shape[0] == 2:
                 # A single env given the documented [current, duration] pair.
                 action = action[None, :]
             if action.ndim == 1:  # (B,) current-only -> default 1 ns
-                if action.shape[0] != self.batch_size:
+                if action.shape[0] != self.local_batch_size:
                     raise ValueError(
                         f"1-D continuous action of length {action.shape[0]} does "
-                        f"not match batch_size {self.batch_size}; pass (B, 2) "
-                        "[current, duration] actions"
+                        f"not match the batch of {self.local_batch_size} envs; pass "
+                        "(B, 2) [current, duration] actions"
                     )
                 current = action
                 duration = torch.full_like(current, 1e-9)
@@ -324,7 +346,7 @@ class SpinTorqueEnv:
 
     def step(self, state: EnvState, action) -> Tuple[EnvState, TimeStep]:
         cfg = self.config
-        B = self.batch_size
+        B = self.local_batch_size
 
         current, duration = self._decode_action(action)
 
@@ -341,6 +363,7 @@ class SpinTorqueEnv:
             config=self._integrator,
             seed=derive_seed(state.seed, state.counter),
             temperature=cfg.temperature,
+            mesh=self.mesh,
         )
         mx, my, mz = res.m
         # Final renormalization...
@@ -412,8 +435,8 @@ class SpinTorqueEnv:
 
         if cfg.autoreset:
             # Done envs are reset on the device, by selects.
-            m_reset = self._sample_m(state.generator, B)
-            t_reset = self._sample_target(state.generator, B)
+            m_reset = self._sample_m(state.generator)
+            t_reset = self._sample_target(state.generator)
             d3 = done[:, None]
             next_state = dataclasses.replace(
                 mid_state,

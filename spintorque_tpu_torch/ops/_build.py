@@ -3,9 +3,11 @@
 ``csrc/*.cu`` (with the headers beside them) compile with ``nvcc`` for
 Hopper (``sm_90a``) into ``build/kernels/libspintorque_kernels_<sha>.so``
 at the root of the checkout, where ``<sha>`` hashes the sources and the
-flags, so an edit rebuilds and an unchanged tree reuses the library. The
-library has a plain C interface and is loaded with ctypes; it does not
-include PyTorch's headers, so the build takes seconds.
+flags, so an edit rebuilds and an unchanged tree reuses the library. Each
+source compiles to an object in its own ``nvcc``, all started together,
+and one ``nvcc`` links the objects. The library has a plain C interface and
+is loaded with ctypes; it does not include PyTorch's headers, so the build
+takes seconds.
 
 Flags: no ``--use_fast_math`` and ``--fmad=false``, because the kernels are
 held to their plain PyTorch versions to a few ulps, and true division,
@@ -20,15 +22,15 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 
@@ -73,6 +75,14 @@ def source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(CSRC))
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    return log
+
+
 _LIBRARY: Optional[KernelLibrary] = None
 
 
@@ -86,17 +96,24 @@ def load_library() -> KernelLibrary:
     seconds = 0.0
     if not out.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
+        sources = [p for p in _sources() if p.suffix == ".cu"]
+        objects = [tmp.with_suffix(f".{p.stem}.o") for p in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(CSRC))
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        try:
+            with ThreadPoolExecutor(len(sources)) as pool:
+                logs = list(pool.map(_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                                            for p, o in zip(sources, objects)]))
+            logs.append(_run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objects)]))
+        except BaseException:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        log_path.write_text(log)
+            raise
+        finally:
+            for o in objects:
+                o.unlink(missing_ok=True)
+        seconds = time.perf_counter() - t0
+        log_path.write_text("".join(logs))
         os.replace(tmp, out)
     log = log_path.read_text() if log_path.is_file() else ""
     lib = ctypes.CDLL(str(out))
@@ -106,8 +123,15 @@ def load_library() -> KernelLibrary:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
+    # A pointer or the stream is c_void_p: ctypes would pass a bare Python
+    # int as a 32-bit int.
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.spintorque_pulse_integrate.argtypes = [p] * 19 + [i] * 6 + [u, u, i, p]
+    # 19 pointers; batch, method, thermal, per_stage, plus_z, bf16; seed_lo,
+    # seed_hi, env_offset; block; stream.
+    lib.spintorque_pulse_integrate.argtypes = [p] * 19 + [i] * 6 + [u, u, u, i, p]
     lib.spintorque_pulse_integrate.restype = i
     lib.spintorque_probe_add_one.argtypes = [p, p, i, p]
     lib.spintorque_probe_add_one.restype = i
+    # x, y, count, op, steps, block, stream.
+    lib.spintorque_op_chain.argtypes = [p, p, i, i, i, i, p]
+    lib.spintorque_op_chain.restype = i

@@ -9,6 +9,13 @@ The kernel reads and writes env ``perm[t]`` from thread t, so no gather or
 unsort pass is needed. The kernel's plain version is
 ``physics.integrator.integrate_pulse_plain``.
 
+K5, the sharded pulse of the data-parallel path (``_integrate_pulse_pallas_sharded``
+and ``_shard_seed``), is the same kernel launched on one rank's shard with
+``env_offset``, the shard's first global row (``shard_env_offset``): the
+shard sorts its own envs, and its thermal draws are its rows of the
+unsharded stream. Sharded launches count in ``PULSE_SHARDED_LAUNCHES``, the
+others in ``PULSE_LAUNCHES`` (K1) or ``PULSE_BF16_LAUNCHES`` (K6).
+
 Dispatch is by device: ``physics.integrator.integrate_pulse`` sends CUDA
 tensors here, and this wrapper launches the kernel or raises. It never falls
 back to the plain version.
@@ -24,6 +31,7 @@ from ..physics.integrator import (
     IntegratorConfig,
     PulseResult,
     check_config,
+    check_env_offset,
     clamped_substep_counts,
     noise_draws,
     noise_sigma,
@@ -52,7 +60,63 @@ class LaunchCounter:
 
 PULSE_LAUNCHES = LaunchCounter()  # K1
 PULSE_BF16_LAUNCHES = LaunchCounter()  # K6
+PULSE_SHARDED_LAUNCHES = LaunchCounter()  # K5 (float32 or bf16_rhs, on a shard)
 PROBE_LAUNCHES = LaunchCounter()  # K2
+
+
+def shard_env_offset(rank: int, local_batch: int) -> int:
+    """Global index of the first env of data shard ``rank`` of
+    ``local_batch`` envs: the Philox counter's env word on that shard.
+
+    The counterpart of ``_shard_seed``. The JAX kernel seeds each tile with
+    seed + tile id, and tile ids repeat on every shard, so there every shard
+    offsets its seed lest all shards draw identical thermal fields. Here the
+    counter holds the env's index, which repeats on every shard just as
+    well (rows 0..B/W-1). Offsetting the index, not the seed, makes shard r
+    draw exactly rows [r B/W, (r+1) B/W) of the unsharded stream: a sharded
+    pulse equals the unsharded one bit for bit, thermal included."""
+    return rank * local_batch
+
+
+# Operations of one substep, counted from the kernel (and its plain
+# version): each add, multiply, divide, sqrt, log, compare or select counts
+# one, so a transcendental's instruction sequence is undercounted and the
+# bound computed from these is a lower bound. rhs: +z / general axis, with
+# the thermal adds. A Philox call is 10 rounds of two 32x32 multiplies
+# (high and low words), four xors and two key adds; its four normals are two
+# Box-Muller pairs of ~40 ops (uniforms, log, sqrt, the folded cos/sin).
+_RHS_OPS = {True: 46, False: 64}
+_NORMALIZE_OPS = 9 + 7  # squares, sqrt, divides; finiteness compares, selects
+_PHILOX_CALL_OPS = 10 * 10 + 2 * 40
+
+
+def pulse_ops_per_substep(config: IntegratorConfig, plus_z: bool) -> int:
+    """Operations of one substep of one env (see ``_RHS_OPS``)."""
+    r = _RHS_OPS[plus_z]
+    if config.method == "euler":
+        ops = r + 3 + 3
+    elif config.method == "heun":
+        ops = 2 * r + 6 + 1 + 6 + 3
+    else:
+        ops = 4 * r + 12 + 15 + 18 + 3
+    ops += _NORMALIZE_OPS + 4  # the failed flag's compares
+    if config.thermal:
+        draws = noise_draws(config)
+        ops += draws * _PHILOX_CALL_OPS + (12 if draws == 3 else 3)
+    return ops
+
+
+def pulse_work(n_substeps: Tensor, config: IntegratorConfig, plus_z: bool) -> Tuple[int, int]:
+    """(operations, bytes) a pulse call over envs with these substep counts
+    must do and move: each env's substeps at ``pulse_ops_per_substep``, and
+    each input read once (state, n, dt, five coefficients, sigma when
+    thermal, the axis when general, the sort's int64 permutation) and each
+    output written once (state, failed). Reads ``n_substeps`` to the host."""
+    batch = n_substeps.numel()
+    ops = int(n_substeps.to(torch.int64).sum()) * pulse_ops_per_substep(config, plus_z)
+    floats_in = 3 + 1 + 5 + int(config.thermal) + (0 if plus_z else 3)
+    bytes_moved = batch * (4 * floats_in + 4 + 8 + 3 * 4 + 1)
+    return ops, bytes_moved
 
 
 def _axis_on_host(easy_axis) -> torch.Tensor:
@@ -155,15 +219,21 @@ def integrate_pulse_cuda(
     config: IntegratorConfig,
     seed: Optional[int] = None,
     temperature=300.0,
+    *,
+    env_offset: int = 0,
+    sharded: Optional[bool] = None,
 ) -> PulseResult:
     """``physics.integrator.integrate_pulse`` by the CUDA kernel.
 
     Takes contiguous float32 (B,) CUDA tensors for m0's components, span and
     current; params fields on the same device, 0-dim or (B,) ((3,) or (B, 3)
-    for the easy axis). Raises on anything else and on an unknown method.
-    Launches K6 when ``config.bf16_rhs``, else K1, on the current stream
-    and does not synchronize; it reads nothing back from the device unless
-    ``params.plus_z`` is None.
+    for the easy axis). Raises on anything else, on an unknown method and
+    on an ``env_offset`` whose global indices pass 2^32. Launches K6 when
+    ``config.bf16_rhs``, else K1, on the current stream and does not
+    synchronize; it reads nothing back from the device unless
+    ``params.plus_z`` is None. ``env_offset`` is the global index of env 0
+    in the thermal stream; a ``sharded`` launch (default: a nonzero offset)
+    is K5 and counts in ``PULSE_SHARDED_LAUNCHES``.
     """
     check_config(config)
     mx0, my0, mz0 = m0
@@ -175,6 +245,9 @@ def integrate_pulse_cuda(
         _check_tensor(name, t, device, (batch,))
     if config.thermal and seed is None:
         raise ValueError("integrate_pulse: thermal=True requires a seed")
+    check_env_offset(env_offset, batch)
+    if sharded is None:
+        sharded = env_offset != 0
     plus_z = params.plus_z if params.plus_z is not None else is_plus_z(params.easy_axis)
 
     dt, n = clamped_substep_counts(span, config)
@@ -215,9 +288,12 @@ def integrate_pulse_cuda(
             mx.data_ptr(), my.data_ptr(), mz.data_ptr(), failed.data_ptr(),
             batch, _METHODS[config.method], int(config.thermal),
             int(noise_draws(config) == 3), int(plus_z), int(config.bf16_rhs), seed_lo, seed_hi,
-            PULSE_BLOCK, stream,
+            env_offset, PULSE_BLOCK, stream,
         )
-        (PULSE_BF16_LAUNCHES if config.bf16_rhs else PULSE_LAUNCHES).count += 1
+        if sharded:
+            PULSE_SHARDED_LAUNCHES.count += 1
+        else:
+            (PULSE_BF16_LAUNCHES if config.bf16_rhs else PULSE_LAUNCHES).count += 1
     if rc != 0:
         raise RuntimeError(f"pulse kernel launch failed: cudaError {rc}")
     return PulseResult(m=(mx, my, mz), n_substeps=n, dt=dt, failed=failed)

@@ -1,0 +1,181 @@
+"""The ('data', 'model') rank mesh and the helpers of the data-parallel path.
+
+PyTorch counterpart of ``spintorque_tpu/parallel/mesh.py``. One process
+drives one card, so a mesh is a layout of the ranks of the default process
+group (``parallel.distributed.initialize``), built with
+``torch.distributed.device_mesh.init_device_mesh``:
+
+  * 'data'  - the env batch axis: rank r of W holds global rows
+    [r B/W, (r+1) B/W) of every batch-major tensor (pure data parallel);
+  * 'model' - a tensor-parallel axis for the policy network. ``make_mesh``
+    accepts it; ``rl.PPOTrainer`` does not run it yet (ROADMAP).
+
+Each env is independent, so the env step needs no collective; the ranks
+meet only to reduce metrics and, in the trainer, gradients. The JAX
+package's ``env_sharding`` and ``replicated`` have no counterpart: a JAX
+array carries its sharding, a torch tensor is a rank's own rows, and what
+would be replicated is simply the same on every rank.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The rank mesh as this rank sees it.
+
+    ``shape`` is {"data": n_data, "model": n_model}; ``device`` is this
+    rank's device; ``device_mesh`` is the torch ``DeviceMesh``, or None in a
+    single process without a process group (a 1 x 1 mesh whose collectives
+    are the identity)."""
+
+    shape: Dict[str, int]
+    device: torch.device
+    device_mesh: Any = None
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index along 'data'."""
+        return 0 if self.device_mesh is None else int(self.device_mesh.get_coordinate()[0])
+
+    @property
+    def data_group(self):
+        return None if self.device_mesh is None else self.device_mesh.get_group("data")
+
+    @property
+    def backend(self) -> Optional[str]:
+        return None if self.device_mesh is None else dist.get_backend()
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device="cuda") -> Mesh:
+    """A ('data', 'model') mesh over the ranks of the process group.
+
+    Defaults to every rank on the data axis; raises when n_data x n_model
+    is not the world size (1 without a process group). ``device`` is the
+    rank's device type: "cuda" (the card ``initialize`` made current) or
+    "cpu"."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_data is None:
+        n_data = world // n_model
+    if n_data * n_model != world or n_data < 1:
+        raise ValueError(f"mesh {n_data}x{n_model} != {world} ranks")
+    device = resolve_device(device, None)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    device_mesh = None
+    if dist.is_initialized():
+        from torch.distributed.device_mesh import init_device_mesh
+
+        device_mesh = init_device_mesh(device.type, (n_data, n_model),
+                                       mesh_dim_names=("data", "model"))
+    return Mesh({"data": n_data, "model": n_model}, device, device_mesh)
+
+
+def resolve_device(device, mesh: Optional[Mesh]) -> torch.device:
+    """The device of an entry point: the mesh's when a mesh is given (an
+    explicit ``device`` of another type raises), else ``device``, "cuda"
+    when None. Raises on a device other than cuda or cpu, and on "cuda"
+    where torch sees no card."""
+    if mesh is not None:
+        if device is not None and torch.device(device).type != mesh.device.type:
+            raise ValueError(f"the mesh is on {mesh.device}, not {device}")
+        return mesh.device
+    device = torch.device("cuda" if device is None else device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"runs on cuda or cpu, not {device}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("torch sees no CUDA device; pass device='cpu'")
+    return device
+
+
+def local_batch_size(global_batch: int, mesh: Mesh) -> int:
+    n = mesh.shape["data"]
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by data axis {n}")
+    return global_batch // n
+
+
+def shard_batch(x: Tensor, mesh: Mesh) -> Tensor:
+    """This rank's rows of a global (B, ...) tensor. Raises when B does not
+    divide the data axis (the JAX package replicates such a batch)."""
+    n = local_batch_size(x.shape[0], mesh)
+    r = mesh.data_rank
+    return x[r * n:(r + 1) * n]
+
+
+def shard_env_state(state, mesh: Mesh):
+    """This rank's rows of a global (unsharded) EnvState: every batch-major
+    tensor, the reward statistics included; host fields and the reset
+    generator are kept. Equals the state that ``SpinTorqueEnv(mesh=mesh)``
+    returns from ``reset`` with the same seed."""
+    def rows(x):
+        return shard_batch(x, mesh) if isinstance(x, Tensor) and x.ndim >= 1 else x
+
+    stats = {name: dataclasses.replace(st, **{f.name: rows(getattr(st, f.name))
+                                              for f in dataclasses.fields(st)})
+             for name, st in state.reward_stats.items()}
+    fields = {f.name: rows(getattr(state, f.name)) for f in dataclasses.fields(state)
+              if f.name != "reward_stats"}
+    return dataclasses.replace(state, **fields, reward_stats=stats)
+
+
+def all_reduce(x: Tensor, mesh: Optional[Mesh], op=None) -> Tensor:
+    """``x`` reduced over the data axis (SUM by default), in place; the
+    identity without a mesh or without a process group."""
+    if mesh is not None and mesh.device_mesh is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op, group=mesh.data_group)
+    return x
+
+
+def gather_batch(x: Tensor, mesh: Optional[Mesh]) -> Tensor:
+    """The global (B, ...) tensor from every rank's rows (the inverse of
+    ``shard_batch``), on every rank."""
+    if mesh is None or mesh.device_mesh is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(mesh.shape["data"])]
+    dist.all_gather(parts, x.contiguous(), group=mesh.data_group)
+    return torch.cat(parts)
+
+
+def pmean_metrics(tree, mesh: Optional[Mesh]):
+    """Global mean of each metric leaf, the same on every rank.
+
+    Leaves are tensors (a rank's rows of per-env metrics, or scalars) or
+    numbers, in nested dicts; each becomes a 0-dim tensor, the mean over
+    every rank's elements. One ``all_reduce(SUM)`` carries each leaf's sum
+    and element count, in float64, and the division follows it
+    (``ReduceOp.AVG`` exists only on NCCL)."""
+    leaves = []
+
+    def collect(t):
+        if isinstance(t, dict):
+            return {k: collect(v) for k, v in t.items()}
+        leaves.append(torch.as_tensor(t))
+        return len(leaves) - 1
+
+    index = collect(tree)
+    if not leaves:
+        return tree
+    device = mesh.device if mesh is not None else leaves[0].device
+    sums = [x.to(device, torch.float64).sum() for x in leaves]
+    # Filled on the device: a tensor made from a host list would sync.
+    counts = [torch.full((), float(x.numel()), dtype=torch.float64, device=device) for x in leaves]
+    totals = all_reduce(torch.stack(sums + counts), mesh)
+    means = totals[:len(leaves)] / totals[len(leaves):]
+
+    def place(i):
+        if isinstance(i, dict):
+            return {k: place(v) for k, v in i.items()}
+        x = leaves[i]
+        dtype = x.dtype if x.is_floating_point() else torch.get_default_dtype()
+        return means[i].to(dtype)
+
+    return place(index)

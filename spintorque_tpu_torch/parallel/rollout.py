@@ -3,16 +3,20 @@
 PyTorch counterpart of ``spintorque_tpu/parallel/rollout.py``: a Python loop
 over ``env.step`` in place of the jitted ``lax.scan``. Policy forward and env
 transition stay on the env's device for the whole horizon; nothing is read
-back until the caller reads the trajectory or its summary.
+back until the caller reads the trajectory or its summary. On a mesh each
+rank collects its own rows; ``summarize`` reduces over the ranks.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from ..envs.spin_torque import EnvState, SpinTorqueEnv
+from .mesh import all_reduce
+
+if TYPE_CHECKING:  # envs imports parallel.mesh
+    from ..envs.spin_torque import EnvState, SpinTorqueEnv
 
 Tensor = torch.Tensor
 
@@ -75,21 +79,30 @@ def rollout(
     return state, obs, traj
 
 
-def summarize(traj: Trajectory) -> Dict[str, Any]:
+def summarize(traj: Trajectory, mesh=None) -> Dict[str, Any]:
     """Scalar rollout metrics: ``steps`` a host int, the rest 0-dim device
-    tensors."""
+    tensors. With a ``parallel.Mesh`` (``traj`` holds this rank's rows) they
+    are global: one ``all_reduce(SUM)`` of the counts and sums, the same on
+    every rank."""
     done = traj.terminated | traj.truncated
-    n_done = done.sum()
-    episodes = torch.clamp_min(n_done, 1)
+    sums = all_reduce(torch.stack([
+        x.sum().to(torch.float64) for x in (
+            done, traj.terminated & done, traj.reward, traj.info["step_energy"],
+            traj.info["current_alignment"],
+        )
+    ]), mesh)
+    n_done, n_success, reward, energy, alignment = sums.unbind()
+    dtype = traj.reward.dtype
+    count = traj.reward.numel() * (mesh.shape["data"] if mesh is not None else 1)
     return {
-        "steps": traj.reward.numel(),
-        "mean_reward": traj.reward.mean(),
-        "episodes": n_done,
+        "steps": count,
+        "mean_reward": (reward / count).to(dtype),
+        "episodes": n_done.to(torch.int64),
         "success_rate": torch.where(
-            done.any(), (traj.terminated & done).sum() / episodes, 0.0
-        ),
-        "mean_step_energy": traj.info["step_energy"].mean(),
-        "mean_alignment": traj.info["current_alignment"].mean(),
+            n_done > 0, n_success / torch.clamp_min(n_done, 1), 0.0
+        ).to(dtype),
+        "mean_step_energy": (energy / count).to(dtype),
+        "mean_alignment": (alignment / count).to(dtype),
     }
 
 

@@ -22,7 +22,10 @@ Thermal noise modes:
   * 'physical' - sqrt(2 alpha k_B T / (gamma mu0 Ms V dt)), the consistent
     discretization of Brown's model; best paired with method='heun'.
 The noise comes from the counter-based Philox stream of ``ops/philox.py``,
-keyed by a 64-bit seed, which the kernel draws bit for bit the same.
+keyed by a 64-bit seed, which the kernel draws bit for bit the same. Its
+counter holds the env's global index: ``env_offset`` plus the env's index
+in the batch, so a shard of a batch (``env_offset`` = the shard's first
+row) draws exactly its rows of the unsharded stream.
 
 ``bf16_rhs`` runs the stage arithmetic in bfloat16, as the JAX package's
 Pallas kernel does: the coefficients, dt, a bf16 copy of the state and the
@@ -150,6 +153,16 @@ def noise_draws(config: IntegratorConfig) -> int:
     return 3 if (config.method == "rk4" and config.rk4_noise == "per_stage") else 1
 
 
+def check_env_offset(env_offset: int, batch: int) -> None:
+    """Raise unless every global env index env_offset + b, b < batch, fits
+    the uint32 word of the Philox counter."""
+    if not 0 <= env_offset <= 2**32 - batch:
+        raise ValueError(
+            f"env_offset {env_offset} + batch {batch} exceeds the 2^32 env indices "
+            "of the thermal stream"
+        )
+
+
 def _increment(m, dt, c, method: str, stage):
     """One substep's increment of m, in the dtype of ``m``, ``dt`` and ``c``.
 
@@ -218,13 +231,14 @@ def integrate_pulse_plain(
     config: IntegratorConfig,
     seed: Optional[int] = None,
     temperature=300.0,
+    env_offset: int = 0,
 ) -> PulseResult:
     """The pulse kernel's plain PyTorch version, on any device.
 
     Loops to the batch's largest n (one host read of n) and masks envs whose
     n is reached. ``seed`` keys the Philox thermal stream (required when
     ``config.thermal``); the counter of env b's draw d at substep i is
-    (b, i, d, 0), exactly as the kernel counts it.
+    (env_offset + b, i, d, 0), exactly as the kernel counts it.
     """
     check_config(config)
     mx, my, mz = m0
@@ -232,6 +246,7 @@ def integrate_pulse_plain(
     span = torch.as_tensor(span, dtype=dtype, device=mx.device)
     current = torch.as_tensor(current, dtype=dtype, device=mx.device)
     mx, my, mz, span, current = torch.broadcast_tensors(mx, my, mz, span, current)
+    check_env_offset(env_offset, mx.shape[0])
     params = params.to(dtype=dtype)
 
     dt, n = clamped_substep_counts(span, config)
@@ -246,7 +261,7 @@ def integrate_pulse_plain(
         if seed is None:
             raise ValueError("integrate_pulse: thermal=True requires a seed")
         sigma = noise_sigma(params, temperature, dt, config)
-        env_index = torch.arange(mx.shape[0], device=mx.device)
+        env_index = env_offset + torch.arange(mx.shape[0], device=mx.device)
         draws = noise_draws(config)
 
     failed = torch.zeros(mx.shape, dtype=torch.bool, device=mx.device)
@@ -277,6 +292,8 @@ def integrate_pulse(
     config: IntegratorConfig,
     seed: Optional[int] = None,
     temperature=300.0,
+    *,
+    mesh=None,
 ) -> PulseResult:
     """Advance a batch of magnetizations through one square current pulse.
 
@@ -289,15 +306,26 @@ def integrate_pulse(
         seed: 64-bit key of the Philox thermal stream (required when
             config.thermal).
         temperature: float or (B,) tensor, Kelvin.
+        mesh: the ``parallel.Mesh`` whose 'data' shard this batch is (B is
+            then the rank's local batch); its thermal draws are keyed from
+            the shard's first global row,
+            ``ops.cuda_integrator.shard_env_offset``.
 
-    CUDA tensors run the hand-written kernel and CPU tensors its plain
-    version; any other device raises.
+    CUDA tensors run the hand-written kernel (K5, the sharded launch, on a
+    mesh; K1 or K6 otherwise) and CPU tensors its plain version; any other
+    device raises. Each shard sorts its own
+    envs by n, and its thermal draws are its rows of the unsharded stream,
+    so a sharded pulse equals the unsharded one bit for bit.
     """
+    from ..ops.cuda_integrator import integrate_pulse_cuda, shard_env_offset
+
+    sharded = mesh is not None
+    env_offset = shard_env_offset(mesh.data_rank, m0[0].shape[0]) if sharded else 0
     device = m0[0].device
     if device.type == "cuda":
-        from ..ops.cuda_integrator import integrate_pulse_cuda
-
-        return integrate_pulse_cuda(m0, span, current, params, config, seed, temperature)
+        return integrate_pulse_cuda(m0, span, current, params, config, seed, temperature,
+                                    env_offset=env_offset, sharded=sharded)
     if device.type != "cpu":
         raise ValueError(f"integrate_pulse runs on cuda or cpu tensors, not {device}")
-    return integrate_pulse_plain(m0, span, current, params, config, seed, temperature)
+    return integrate_pulse_plain(m0, span, current, params, config, seed, temperature,
+                                 env_offset=env_offset)

@@ -16,6 +16,18 @@ Held to the JAX package's update: the clip is optax's
 (``torch.optim.Adam`` with eps 1e-8, the same formula in another op order),
 and the advantage std is the population std. The trainer sets no global
 flags: float32 matmuls run without TF32, PyTorch's default.
+
+On a mesh (the env's ``SpinTorqueEnv(mesh=...)``) each rank collects its own
+rows and draws its own actions and minibatch permutations (its generator
+is folded with its rank); the initial weights, drawn on the CPU from the
+seed, are the same on every rank. The advantage mean and population std are
+global (two ``all_reduce(SUM)`` passes), each minibatch takes
+``n_local // num_minibatches`` rows of every rank, and its gradients are
+averaged over the ranks by one flattened ``all_reduce(SUM) / W`` before the
+clip, so the clip sees the global norm and Adam runs identically on every
+rank. The minibatches are thus stratified by rank: the same estimator as
+the JAX trainer's global permutation, another draw of it. Metrics are
+global means (``parallel.pmean_metrics``); ``episodes`` is a global sum.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ import torch
 
 from ..envs.spin_torque import EnvState, SpinTorqueEnv
 from ..ops.philox import derive_seed
+from ..parallel.mesh import all_reduce, pmean_metrics
 from .networks import (
     ActorCritic,
     continuous_action_transform,
@@ -78,11 +91,25 @@ _TRAJ_KEYS = ("obs", "raw_action", "reward", "done", "terminated", "log_prob", "
 
 
 class PPOTrainer:
-    """PPO over a vectorized SpinTorqueEnv on the env's device."""
+    """PPO over a vectorized SpinTorqueEnv on the env's device, on one rank
+    or, with the env's mesh, on every rank of it."""
 
-    def __init__(self, env: SpinTorqueEnv, config: PPOConfig = PPOConfig()):
+    def __init__(self, env: SpinTorqueEnv, config: PPOConfig = PPOConfig(), mesh=None):
+        if mesh is None:
+            mesh = env.mesh
+        elif env.mesh is not mesh:
+            raise ValueError(
+                "PPOTrainer(mesh=...) takes an env built on the same mesh "
+                "(SpinTorqueEnv(mesh=...)), which holds this rank's rows"
+            )
+        if mesh is not None and mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                "a 'model' mesh axis (the JAX package's tensor-parallel policy) is not "
+                "ported yet; see ROADMAP.md Queue 1 item 8"
+            )
         self.env = env
         self.config = config
+        self.mesh = mesh
         if env.config.observation_mode != "vector":
             raise ValueError(
                 "PPOTrainer requires observation_mode='vector' (dict "
@@ -111,8 +138,11 @@ class PPOTrainer:
     def init(self, seed: int) -> TrainState:
         env_state, obs = self.env.reset(seed)
         network = self.make_network(derive_seed(seed, 1 << 32))
+        draw_seed = derive_seed(seed, (1 << 32) + 1)
+        if self.mesh is not None:  # each rank its own actions and minibatches
+            draw_seed = derive_seed(draw_seed, self.mesh.data_rank)
         generator = torch.Generator(device=self.env.device)
-        generator.manual_seed(derive_seed(seed, (1 << 32) + 1))
+        generator.manual_seed(draw_seed)
         return TrainState(
             network=network,
             optimizer=self.make_optimizer(network),
@@ -208,6 +238,19 @@ class PPOTrainer:
         total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * ent
         return total, dict(pg_loss=pg_loss, v_loss=v_loss, entropy=ent)
 
+    def average_grads(self, network: ActorCritic) -> None:
+        """The gradients' mean over the ranks, in place: one flattened
+        ``all_reduce(SUM)``, then / W. Nothing without a mesh."""
+        if self.mesh is None:
+            return
+        grads = [p.grad for p in network.parameters() if p.grad is not None]
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), self.mesh)
+        flat /= self.mesh.shape["data"]
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
     def clip_grads(self, network: ActorCritic) -> None:
         """optax.clip_by_global_norm on the gradients, in place."""
         grads = [p.grad for p in network.parameters() if p.grad is not None]
@@ -229,7 +272,11 @@ class PPOTrainer:
         ``n // num_minibatches`` rows taken in the order of ``perms[e]``
         (the remainder dropped), each a gradient step. ``network`` and
         ``optimizer`` are updated in place. Returns (losses, auxes), each
-        (num_epochs, num_minibatches)."""
+        (num_epochs, num_minibatches).
+
+        On a mesh ``traj`` and ``perms`` are this rank's (n = its T x B/W
+        rows); the advantage statistics, gradients, losses and auxes are
+        global, so every rank ends with the same parameters."""
         cfg = self.config
         advantages, returns = self.advantages(network, traj, last_obs)
 
@@ -242,7 +289,9 @@ class PPOTrainer:
             advantage=flat(advantages), ret=flat(returns),
         )
         adv = batch["advantage"]
-        batch["advantage"] = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        mean = pmean_metrics(adv, self.mesh)  # over every rank's rows
+        std = torch.sqrt(pmean_metrics((adv - mean) ** 2, self.mesh))  # population std
+        batch["advantage"] = (adv - mean) / (std + 1e-8)
         size = batch["log_prob"].shape[0] // cfg.num_minibatches
 
         losses, auxes = [], {k: [] for k in ("pg_loss", "v_loss", "entropy")}
@@ -253,14 +302,18 @@ class PPOTrainer:
                 optimizer.zero_grad(set_to_none=True)
                 total, aux = self.loss(network, mb)
                 total.backward()
+                self.average_grads(network)
                 self.clip_grads(network)
                 optimizer.step()
                 losses.append(total.detach())
                 for k, v in aux.items():
                     auxes[k].append(v.detach())
         shape = (cfg.num_epochs, cfg.num_minibatches)
-        return (torch.stack(losses).reshape(shape),
-                {k: torch.stack(v).reshape(shape) for k, v in auxes.items()})
+        stacked = torch.stack([torch.stack(losses)] + [torch.stack(v) for v in auxes.values()])
+        if self.mesh is not None:
+            stacked = all_reduce(stacked, self.mesh) / self.mesh.shape["data"]
+        losses, *rest = (x.reshape(shape) for x in stacked.unbind())
+        return losses, dict(zip(auxes, rest))
 
     def update(self, ts: TrainState, traj: Dict[str, Tensor]) -> Dict[str, Tensor]:
         """The update phase of a train step on a collected trajectory
@@ -272,14 +325,15 @@ class PPOTrainer:
             for _ in range(self.config.num_epochs)
         ])
         losses, auxes = self.update_from_traj(ts.network, ts.optimizer, traj, ts.obs, perms)
+        dtype = traj["reward"].dtype
         return {
             "loss": losses.mean(),
             "pg_loss": auxes["pg_loss"].mean(),
             "v_loss": auxes["v_loss"].mean(),
             "entropy": auxes["entropy"].mean(),
-            "mean_reward": traj["reward"].mean(),
-            "success_rate": traj["success"].to(traj["reward"].dtype).mean(),
-            "episodes": traj["done"].sum(),
+            **pmean_metrics({"mean_reward": traj["reward"],
+                             "success_rate": traj["success"].to(dtype)}, self.mesh),
+            "episodes": all_reduce(traj["done"].sum().reshape(1), self.mesh)[0],
         }
 
     def train_step(self, ts: TrainState) -> Tuple[TrainState, Dict[str, Tensor]]:

@@ -8,6 +8,10 @@ is the PPO rollout length) with random actions, warms up, then times
 synchronize per block, on the env's own device. ``measure_train_throughput``
 times ``PPOTrainer`` train steps and splits each into its rollout and update
 phases.
+
+On a mesh (an env built with ``mesh=``) every rank runs the same program on
+its rows; the ranks start each timed block together, and a rate is the
+global env-steps over the slowest rank's time (``all_reduce(MAX)``).
 """
 
 from __future__ import annotations
@@ -16,6 +20,34 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import all_reduce
+
+
+def _run_info(mesh, device) -> dict:
+    """World size, process-group backend and device name of a measurement."""
+    return dict(
+        world_size=mesh.shape["data"] * mesh.shape["model"] if mesh is not None else 1,
+        backend=mesh.backend if mesh is not None else None,
+        device=torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+    )
+
+
+def _slowest(seconds: float, mesh, device) -> float:
+    """The largest of every rank's ``seconds``."""
+    if mesh is None:
+        return seconds
+    t = torch.tensor([seconds], dtype=torch.float64, device=device)
+    return float(all_reduce(t, mesh, dist.ReduceOp.MAX)[0])
+
+
+def _start_together(mesh, device, sync) -> None:
+    """Wait until every rank's device is idle and every rank is here."""
+    sync()
+    if mesh is not None:
+        all_reduce(torch.zeros(1, device=device), mesh)
+        sync()
 
 
 def measure_env_throughput(
@@ -33,13 +65,15 @@ def measure_env_throughput(
     """Env-steps/s of ``env.step`` in steady state.
 
     ``make_action(generator, batch_size)`` overrides the random policy; the
-    generator lives on the env's device. ``sync_debug_mode`` (CUDA only),
-    when set, runs every timed block's steps under
-    ``torch.cuda.set_sync_debug_mode`` ("error" makes any host sync of the
-    step raise); the block's closing synchronize runs outside it.
+    generator lives on the env's device, and ``batch_size`` is the rank's
+    rows. ``sync_debug_mode`` (CUDA only), when set, runs every timed
+    block's steps under ``torch.cuda.set_sync_debug_mode`` ("error" makes
+    any host sync of the step raise); the block's closing synchronize runs
+    outside it.
 
     Returns (rates, env_steps_per_block), plus the final obs when
-    ``return_final``; ``rates`` holds one env-steps/s number per block.
+    ``return_final``; ``rates`` holds one env-steps/s number per block, of
+    the global batch.
     """
     from ..parallel import random_policy
 
@@ -53,7 +87,7 @@ def measure_env_throughput(
             return policy(None, obs, generator)
     else:
         def act(generator, obs):
-            return make_action(generator, env.batch_size)
+            return make_action(generator, env.local_batch_size)
 
     state, obs = env.reset(seed)
     generator = torch.Generator(device=env.device)
@@ -71,10 +105,10 @@ def measure_env_throughput(
                 obs = ts.obs
 
     run(warmup)
-    sync()
     steps_per_block = iters_per_block * n_inner * env.batch_size
     rates = []
     for _ in range(blocks):
+        _start_together(env.mesh, env.device, sync)
         t0 = time.perf_counter()
         if sync_debug_mode is not None:
             torch.cuda.set_sync_debug_mode(sync_debug_mode)
@@ -84,7 +118,7 @@ def measure_env_throughput(
             if sync_debug_mode is not None:
                 torch.cuda.set_sync_debug_mode("default")
         sync()
-        rates.append(steps_per_block / (time.perf_counter() - t0))
+        rates.append(steps_per_block / _slowest(time.perf_counter() - t0, env.mesh, env.device))
     if return_final:
         return rates, steps_per_block, obs
     return rates, steps_per_block
@@ -107,10 +141,12 @@ def measure_train_throughput(trainer, *, warmup: int = 1, steps: int = 3, seed: 
     ``torch.cuda.set_sync_debug_mode``; each step's closing synchronize runs
     outside it.
 
-    Returns a dict: ``device`` (the card's name, or "cpu"), ``rates``
-    (env-steps/s per timed step), ``env_steps_per_step``, ``rollout_ms`` and
-    ``update_ms`` (per timed step), ``metrics`` (the last step's, as floats)
-    and ``state`` (the final TrainState).
+    Returns a dict: ``device`` (the card's name, or "cpu"), ``world_size``
+    and ``backend`` (of the trainer's mesh; 1 and None without one),
+    ``rates`` (global env-steps/s per timed step, over the slowest rank's
+    time), ``env_steps_per_step``, ``rollout_ms`` and ``update_ms`` (this
+    rank's, per timed step), ``metrics`` (the last step's, as floats) and
+    ``state`` (the final TrainState).
     """
     env = trainer.env
     cuda = env.device.type == "cuda"
@@ -121,7 +157,7 @@ def measure_train_throughput(trainer, *, warmup: int = 1, steps: int = 3, seed: 
         ts, _ = trainer.train_step(ts)
     env_steps = trainer.config.rollout_steps * env.batch_size
     out = dict(
-        device=torch.cuda.get_device_name(env.device) if cuda else "cpu",
+        **_run_info(trainer.mesh, env.device),
         rates=[], env_steps_per_step=env_steps, rollout_ms=[], update_ms=[],
     )
 
@@ -130,8 +166,8 @@ def measure_train_throughput(trainer, *, warmup: int = 1, steps: int = 3, seed: 
             torch.cuda.synchronize(env.device)
 
     metrics = {}
-    sync()
     for _ in range(steps):
+        _start_together(trainer.mesh, env.device, sync)
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if cuda else None
         t0 = time.perf_counter()
         if sync_debug_mode is not None:
@@ -152,7 +188,7 @@ def measure_train_throughput(trainer, *, warmup: int = 1, steps: int = 3, seed: 
                 torch.cuda.set_sync_debug_mode("default")
         sync()
         t2 = time.perf_counter()
-        out["rates"].append(env_steps / (t2 - t0))
+        out["rates"].append(env_steps / _slowest(t2 - t0, trainer.mesh, env.device))
         if cuda:
             out["rollout_ms"].append(marks[0].elapsed_time(marks[1]))
             out["update_ms"].append(marks[1].elapsed_time(marks[2]))

@@ -1,5 +1,6 @@
-"""The CUDA pulse kernels (K1 in float32, K6 with bf16 stage arithmetic)
-against their plain versions, and the PPO trainer, on the card.
+"""The CUDA pulse kernels (K1 in float32, K6 with bf16 stage arithmetic,
+K5 on a shard) against their plain versions, and the PPO trainer, on the
+card.
 
 Every test here carries the ``cuda`` marker and skips where torch sees no
 CUDA device. This file imports no JAX, so it also runs where the JAX
@@ -12,6 +13,8 @@ failed identical (the kernel is built with --fmad=false and mirrors the
 plain version op for op, so they usually agree to the bit). K6 rounds every
 stage op to bf16 as a torch bf16 op does, and is held to the same bounds.
 """
+
+import types
 
 import pytest
 import torch
@@ -152,3 +155,30 @@ def test_env_step_launches_the_kernel_without_host_sync(cuda):
     assert ci.PULSE_LAUNCHES.count - before == 8
     with pytest.raises(ValueError):
         SpinTorqueEnv(batch_size=4, device=cuda, dtype="float64")
+
+
+@pytest.mark.parametrize("bf16_rhs", [False, True], ids=["k1", "k6"])
+def test_sharded_kernel_equals_unsharded(cuda, bf16_rhs):
+    """K5: four shards, each keyed by its global rows, equal the unsharded
+    launch bit for bit, thermal noise included, and hold to the sharded
+    plain version at the thermal tolerance."""
+    B, W = 512, 4
+    n = B // W
+    m0, spans, cur = _setup(B, cuda, seed=6)
+    p = _params(cuda)
+    cfg = IntegratorConfig(method="rk4", max_substeps=256, thermal=True,
+                           rk4_noise="per_substep", bf16_rhs=bf16_rhs)
+    ref = integrate_pulse(m0, spans, cur, p, cfg, seed=3)
+    before = ci.PULSE_SHARDED_LAUNCHES.count
+    for r in range(W):
+        rows = slice(r * n, (r + 1) * n)
+        shard = [x[rows].contiguous() for x in (*m0, spans, cur)]
+        out = integrate_pulse(tuple(shard[:3]), shard[3], shard[4], p, cfg, seed=3,
+                              mesh=types.SimpleNamespace(data_rank=r))
+        for got, want in zip(out.m, ref.m):
+            assert torch.equal(got, want[rows])
+        assert torch.equal(out.n_substeps, ref.n_substeps[rows])
+        assert torch.equal(out.failed, ref.failed[rows])
+        _assert_close(out, integrate_pulse_plain(tuple(shard[:3]), shard[3], shard[4], p, cfg,
+                                                 seed=3, env_offset=r * n), tol=1e-5)
+    assert ci.PULSE_SHARDED_LAUNCHES.count - before == W

@@ -15,6 +15,7 @@ is held at float32 rounding, rtol 2^-23.
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -223,3 +224,12 @@ def test_reset_and_thermal_step_on_cpu():
     assert torch.isfinite(t16.obs).all()
     with pytest.raises(ValueError):
         SpinTorqueEnv(batch_size=2, device="meta")
+
+
+def test_env_defaults_to_the_card():
+    """The entry point runs on the card unless the caller asks for the CPU
+    (or passes a mesh, whose device it takes)."""
+    assert inspect.signature(SpinTorqueEnv).parameters["device"].default is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SpinTorqueEnv(batch_size=2)
