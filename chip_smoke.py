@@ -15,7 +15,23 @@ and a train step, held bit for bit to one process; one NCCL rank through
 the same calls), the switching and Neel-Brown sweeps at full width, and
 the op-chain micro-benchmark (K7). Each path's launch counts are set to 0
 just before it and read just after. Any failed check raises and exits
-non-zero. The last two lines of standard output are the card's name and
+non-zero.
+
+Beside the kernels' checks it holds the pulse kernel's design: ptxas's
+report shows no spill in any pulse_kernel instance; div6, the kernel's
+replacement for RK4's IEEE x / 6.0f, equals it on all 2^32 float32 inputs;
+the thermal ring's ragged cases (a batch that is no multiple of 32, n = 0
+and n = 1 in the warp of the longest env, every n = 0, n one past a
+multiple of the ring's chunk, a nonzero env_offset) agree with the plain
+version bit for bit; K1 thermal and deterministic at B=4096 are timed in
+turns and their ratio printed; K2 is timed in turns with torch.add, per
+call and by the profiler's device time; and each pulse kernel's chain
+floor (``ops.cuda_integrator.pulse_chain_floor_ms``: the longest env's
+substeps times the dependent depth of a substep, priced at K7's measured
+latencies) stands beside its bound: for thermal runs on the normalization's
+fallback path, which skips its division and is the shorter, for K1's and
+K6's deterministic runs (``deterministic_ms`` in the kernels line) on the
+finite path. The last two lines of standard output are the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": {...}};
 the line before those lists each kernel with its launches, error, times and
 bound. A longer record goes to build/chip_smoke.json.
@@ -214,20 +230,38 @@ def main():
     lib = _build.load_library()
     print(f"build: {lib.path.name} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc, one per source in parallel, then one link: {lib.build_seconds:.1f} s)")
-    regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
-    print(f"ptxas: {len(regs)} kernels, registers per thread "
-          f"{sorted({int(r.split('Used ')[1].split()[0]) for r in regs})}")
+    report = _build.ptxas_report(lib.log)
+    pulse_instances = {k: v for k, v in report.items() if "pulse_kernel" in k}
+    spills = {k: (v["spill_stores"], v["spill_loads"]) for k, v in pulse_instances.items()
+              if v["spill_stores"] or v["spill_loads"]}
+    print(f"ptxas: {len(report)} kernels, registers per thread "
+          f"{sorted({v['registers'] for v in report.values()})}; {len(pulse_instances)} "
+          f"pulse_kernel instances, registers {sorted({v['registers'] for v in pulse_instances.values()})}, "
+          f"spill bytes (stores, loads) {sum(a + b for a, b in spills.values())}")
+    check(len(pulse_instances) == 28, f"ptxas reported {len(pulse_instances)} pulse_kernel instances")
+    check(not spills, f"pulse_kernel instances spill: {spills}")
+    RECORD["ptxas"] = report
+    div6_bad, div6_payload = ci.check_div6()
+    print(f"div6 vs IEEE x / 6.0f over all 2^32 float32 inputs: {div6_bad} differ in value, "
+          f"{div6_payload} NaNs differ in payload")
+    check(div6_bad == 0 and div6_payload == 0, "div6 differs from x / 6.0f")
     check(ci.cuda_kernel_available(), "probe failed")
     x = torch.arange(8 * 128, dtype=torch.float32, device=dev)
     probe_err = (ci.probe_add_one(x) - ci.probe_add_one_plain(x)).abs().max().item()
     check(probe_err == 0.0, f"probe disagrees with x + 1 by {probe_err}")
-    probe_ms = cuda_ms(lambda: ci.probe_add_one(x), 100)
+    # Per call, 100 back-to-back calls each, in turns (K2, add, add, K2):
+    # the host's rate of launches, which the profiler's device times below
+    # (section 9) split from the kernels' own time.
+    k2_turns = [cuda_ms(lambda: ci.probe_add_one(x), 100)]
+    add_turns = [cuda_ms(lambda: torch.add(x, 1.0), 100) for _ in range(2)]
+    k2_turns.append(cuda_ms(lambda: ci.probe_add_one(x), 100))
+    probe_ms, probe_library_ms = sum(k2_turns) / 2, sum(add_turns) / 2
     probe_plain_ms = cuda_ms(lambda: ci.probe_add_one_plain(x), 100)
-    probe_library_ms = cuda_ms(lambda: torch.add(x, 1.0), 100)
     probe_bound = bound(x.numel(), 2 * 4 * x.numel())
-    print(f"probe: ok, max_abs_err {probe_err}, {probe_ms:.4f} ms vs plain "
-          f"{probe_plain_ms:.4f} ms, torch.add {probe_library_ms:.4f} ms, "
-          f"bound {probe_bound[0]:.6f} ms  [{smi}]")
+    print(f"probe: ok, max_abs_err {probe_err}, in turns {[round(t, 5) for t in k2_turns]} ms "
+          f"vs torch.add {[round(t, 5) for t in add_turns]} ms per call: K2 {probe_ms:.4f} ms, "
+          f"torch.add {probe_library_ms:.4f} ms ({probe_ms / probe_library_ms:.2f}x); plain "
+          f"{probe_plain_ms:.4f} ms, bound {probe_bound[0]:.6f} ms  [{smi}]")
 
     gen = torch.Generator().manual_seed(1234)
 
@@ -267,6 +301,14 @@ def main():
         check(torch.equal(a.n_substeps, b.n_substeps), "n_substeps differ")
         check(torch.equal(a.failed, b.failed), "failed flags differ")
         return err
+
+    def same_bits(a, want):
+        m, n_sub, failed = want
+        return (all(torch.equal(x, y) for x, y in zip(a.m, m)) and torch.equal(a.n_substeps, n_sub)
+                and torch.equal(a.failed, failed))
+
+    def result(r):
+        return r.m, r.n_substeps, r.failed
 
     # ---------------------------- 3. K1 vs its plain version, deterministic
     det_err = 0.0
@@ -311,6 +353,53 @@ def main():
         thermal_err = max(thermal_err, err)
         print(f"K1 thermal {cfg.method} {cfg.rk4_noise} {cfg.noise_mode}: max_abs_err {err:.3e}")
     RECORD["thermal_max_abs_err"] = thermal_err
+
+    # The ring's ragged cases, each bit for bit with the plain version, for
+    # both record layouts (per_substep: one record per substep; per_stage:
+    # three). Counts that the dt law cannot give (n = 0, 1) go through
+    # launch_pulse, and their reference is the plain version on each group of
+    # rows with that count (max_substeps = the count, env_offset = the
+    # group's first row): each env's draws and integration are its own.
+    ragged = []
+    for noise in ("per_substep", "per_stage"):
+        cfg = IntegratorConfig(method="rk4", max_substeps=512, thermal=True, rk4_noise=noise)
+        m0, spans, cur = setup(100)
+        ragged.append((noise, "B=100", same_bits(
+            ci.integrate_pulse_cuda(m0, spans, cur, params(), cfg, seed=5),
+            result(integrate_pulse_plain(m0, spans, cur, params(), cfg, seed=5)))))
+        m0, spans, cur = setup(32, lo=3e-10, hi=4e-10)
+        groups = ((0, 30, 300), (30, 31, 1), (31, 32, 0))
+        n_rows = torch.tensor([c for lo, hi, c in groups for _ in range(lo, hi)],
+                              dtype=torch.int32, device=dev)
+        got = ci.launch_pulse(m0, spans / n_rows.float(), n_rows, cur, params(), cfg, seed=5)
+        parts = [integrate_pulse_plain(tuple(c[lo:hi] for c in m0), spans[lo:hi], cur[lo:hi],
+                                       params(), cfg._replace(max_substeps=cap), seed=5,
+                                       env_offset=lo) for lo, hi, cap in groups]
+        ragged.append((noise, "n = 300 x 30, 1, 0 in one warp", same_bits(
+            got, (tuple(torch.cat([r.m[k] for r in parts]) for k in range(3)),
+                  torch.cat([r.n_substeps for r in parts]), torch.cat([r.failed for r in parts])))))
+        m0, spans, cur = setup(64)
+        zero = torch.zeros(64, dtype=torch.int32, device=dev)
+        got = ci.launch_pulse(m0, spans / zero.float(), zero, cur, params(), cfg, seed=5)
+        ragged.append((noise, "every n = 0", same_bits(
+            got, (m0, zero, torch.zeros(64, dtype=torch.bool, device=dev)))))
+        m0, _, cur = setup(96)
+        n_odd = ci.PULSE_CHUNK * 13 + 1
+        spans = torch.full((96,), (n_odd + 0.5) * 1e-12, device=dev)
+        got = ci.integrate_pulse_cuda(m0, spans, cur, params(), cfg, seed=5)
+        check(int(got.n_substeps.min()) == int(got.n_substeps.max()) == n_odd, "n != 8k + 1")
+        ragged.append((noise, f"n = {n_odd} (chunk x 13 + 1)", same_bits(
+            got, result(integrate_pulse_plain(m0, spans, cur, params(), cfg, seed=5)))))
+        m0, spans, cur = setup(256)
+        ragged.append((noise, "K5, env_offset 4096", same_bits(
+            ci.integrate_pulse_cuda(m0, spans, cur, params(), cfg, seed=5, env_offset=4096,
+                                    sharded=True),
+            result(integrate_pulse_plain(m0, spans, cur, params(), cfg, seed=5,
+                                         env_offset=4096)))))
+    for noise, label, ok in ragged:
+        print(f"K1 thermal ring, {noise}, {label}: {'bit for bit' if ok else 'DIFFERS'}")
+    check(all(ok for _, _, ok in ragged), "a ragged ring case differs from the plain version")
+    RECORD["ragged_ring"] = ragged
 
     # Boltzmann equilibrium through the kernel: the setup of the JAX
     # package's fast physical-noise gate (heun, physical, B=1024, alpha 0.3,
@@ -408,34 +497,37 @@ def main():
     # comparison at the main path's spans and 5001 max substeps.
     main_cfg = SpinTorqueEnvConfig().integrator()
     p_main = dataclasses.replace(params(), plus_z=True)
+    det_cfg = main_cfg._replace(thermal=False)
     timing = {}
     for B in (4096, 65536):
         m0, spans, cur = setup(B, lo=1e-12, hi=5e-9, cur=2e6)
-        det_cfg = main_cfg._replace(thermal=False)
-        for label, cfg in (("thermal", main_cfg), ("deterministic", det_cfg)):
-            def k1():
-                return ci.integrate_pulse_cuda(m0, spans, cur, p_main, cfg, seed=5)
-
-            def k6():
-                return ci.integrate_pulse_cuda(m0, spans, cur, p_main, cfg._replace(bf16_rhs=True),
-                                               seed=5)
-
-            k1()
-            k6()
-            # In turns, K1, K6, K6, K1, so that both see the same card state.
-            k1_ms = cuda_ms(k1, 3)
-            k6_ms = cuda_ms(k6, 6)
-            k1_ms = (k1_ms + cuda_ms(k1, 3)) / 2
+        calls = {
+            (kernel, label): (lambda cfg=cfg._replace(bf16_rhs=kernel == "K6"):
+                              ci.integrate_pulse_cuda(m0, spans, cur, p_main, cfg, seed=5))
+            for kernel in ("K1", "K6")
+            for label, cfg in (("thermal", main_cfg), ("deterministic", det_cfg))
+        }
+        for fn in calls.values():
+            fn()
+        # In turns, forth and back, so that every call sees the same card state.
+        times = {key: [] for key in calls}
+        for key in [*calls, *reversed(list(calls))]:
+            times[key].append(cuda_ms(calls[key], 3))
+        for label in ("thermal", "deterministic"):
+            k1_ms = sum(times[("K1", label)]) / 2
+            k6_ms = sum(times[("K6", label)]) / 2
             row = dict(ms=k1_ms, bf16_ms=k6_ms)
-            line = f"K1 {label} B={B} max_substeps={cfg.max_substeps}: kernel {k1_ms:.3f} ms"
+            line = f"K1 {label} B={B} max_substeps={main_cfg.max_substeps}: kernel {k1_ms:.3f} ms"
             if B == 4096 and label == "thermal":
+                cfg = main_cfg
                 want, row["plain_ms"] = timed(
                     lambda: integrate_pulse_plain(m0, spans, cur, p_main, cfg, seed=5))
-                got = k1()
+                got = calls[("K1", label)]()
                 row["max_abs_err"] = compare(got, want, 1e-5)
+                row["n_substeps"] = got.n_substeps
                 want, row["bf16_plain_ms"] = timed(lambda: integrate_pulse_plain(
                     m0, spans, cur, p_main, cfg._replace(bf16_rhs=True), seed=5))
-                row["bf16_max_abs_err"] = compare(k6(), want, 1e-5)
+                row["bf16_max_abs_err"] = compare(calls[("K6", label)](), want, 1e-5)
                 row["bound_ms"], row["bound_by"] = bound(*ci.pulse_work(got.n_substeps, cfg, True))
                 line += (f", plain {row['plain_ms']:.1f} ms, max_abs_err "
                          f"{row['max_abs_err']:.3e}; K6 {k6_ms:.3f} ms, plain bf16 "
@@ -446,7 +538,15 @@ def main():
                 line += f"; K6 {k6_ms:.3f} ms"
             timing[f"{label}_B{B}"] = row
             print(f"{line}  [{smi}]")
-    RECORD["k1_timing"] = timing
+        ratio = timing[f"thermal_B{B}"]["ms"] / timing[f"deterministic_B{B}"]["ms"]
+        ratio16 = timing[f"thermal_B{B}"]["bf16_ms"] / timing[f"deterministic_B{B}"]["bf16_ms"]
+        timing[f"thermal_over_deterministic_B{B}"] = dict(k1=ratio, k6=ratio16)
+        print(f"K1 B={B}: thermal / deterministic {ratio:.3f} (in turns, "
+              f"{[round(t, 3) for t in times[('K1', 'thermal')]]} / "
+              f"{[round(t, 3) for t in times[('K1', 'deterministic')]]} ms); K6 {ratio16:.3f}  "
+              f"[{smi}]")
+    RECORD["k1_timing"] = {k: {kk: vv for kk, vv in v.items() if kk != "n_substeps"}
+                           for k, v in timing.items()}
 
     # ------------------------------------- 6. the main path: the env step
     ci.PULSE_LAUNCHES.reset()
@@ -595,6 +695,32 @@ def main():
         top_kernels_us_per_16_steps=top,
     )
 
+    # K2 and torch.add by the profiler's device time, in turns (K2, add, add,
+    # K2), 100 calls per profile: the kernels' own time, apart from the host's
+    # launch rate that the per-call times of section 2 measure.
+    def device_ms_per_call(fn, calls=100):
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in p.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        check(sum(e.count for e in kernels) == calls, f"{len(kernels)} kernels in {calls} calls")
+        return sum(e.self_device_time_total for e in kernels) / calls / 1e3
+
+    k2_dev = [device_ms_per_call(lambda: ci.probe_add_one(x))]
+    add_dev = [device_ms_per_call(lambda: torch.add(x, 1.0)) for _ in range(2)]
+    k2_dev.append(device_ms_per_call(lambda: ci.probe_add_one(x)))
+    probe_device_ms, add_device_ms = sum(k2_dev) / 2, sum(add_dev) / 2
+    print(f"probe device time per call, in turns: K2 {[round(t, 5) for t in k2_dev]} ms, "
+          f"torch.add {[round(t, 5) for t in add_dev]} ms ({probe_device_ms / add_device_ms:.2f}x); "
+          f"per call (section 2) K2 {probe_ms:.4f} ms, torch.add {probe_library_ms:.4f} ms  "
+          f"[{smi}]")
+    RECORD["probe"] = dict(per_call_ms=probe_ms, torch_add_per_call_ms=probe_library_ms,
+                           device_ms=probe_device_ms, torch_add_device_ms=add_device_ms,
+                           per_call_turns=dict(k2=k2_turns, add=add_turns),
+                           device_turns=dict(k2=k2_dev, add=add_dev))
+
     # One float32 step, thermal off, on the card and on the CPU plain path.
     # Without auto-reset: the card's and the CPU's reset generators draw
     # different streams.
@@ -698,6 +824,7 @@ def main():
     want, k5_plain_ms = timed(lambda: integrate_pulse_plain(*shard, p_main, main_cfg, seed=5,
                                                             env_offset=2048))
     got = k5_shard()
+    k5_n = got.n_substeps
     k5_main_err = compare(got, want, 1e-5)
     k5_err = max(k5_err, k5_main_err)
     RECORD["k5_max_abs_err"] = k5_err
@@ -846,7 +973,34 @@ def main():
           f"max_abs_err {k7_err:.1e} (check inputs, {oc.CHECK_STEPS} steps)  [{smi}]")
     RECORD["op_costs"] = costs
 
+    # Chain floors: the longest env's substeps times the dependent depth of
+    # one substep (ops.cuda_integrator.pulse_chain_depth), priced at K7's
+    # latencies measured above. The thermal floors price the fallback path,
+    # which skips the normalization's division: at the main config nearly
+    # every thermal substep's increment is non-finite (its float32 freeze),
+    # and the shorter path's floor holds whatever the draw. The deterministic
+    # floors price the finite path, which those substeps take.
     t_main = timing["thermal_B4096"]
+    t_det = timing["deterministic_B4096"]
+    lat = costs["latency_ns"]
+    n_main = t_main["n_substeps"]
+    k6_cfg, k6_det_cfg = main_cfg._replace(bf16_rhs=True), det_cfg._replace(bf16_rhs=True)
+    floor_rows = {  # name: (config, fallback, substep counts, kernel ms)
+        "K1": (main_cfg, True, n_main, t_main["ms"]),
+        "K1 deterministic": (det_cfg, False, n_main, t_det["ms"]),
+        "K6": (k6_cfg, True, n_main, t_main["bf16_ms"]),
+        "K6 deterministic": (k6_det_cfg, False, n_main, t_det["bf16_ms"]),
+        "K5": (main_cfg, True, k5_n, k5_ms),
+    }
+    floors = {}
+    for name, (cfg, fallback, n, ms) in floor_rows.items():
+        floors[name] = ci.pulse_chain_floor_ms(n, cfg, True, lat, fallback)
+        d = ci.pulse_chain_depth(cfg, True, fallback)
+        ns = sum(v * lat[k] for k, v in d.items() if v)
+        print(f"{name} chain floor (max n {int(n.max())}): {floors[name]:.3f} ms = depth {d} "
+              f"at {ns:.1f} ns a substep; kernel {ms:.3f} ms, {ms / floors[name]:.2f}x  [{smi}]")
+    RECORD["chain_floor_ms"] = floors
+
     pulse = "spintorque_tpu_torch/csrc/pulse_integrator.cu"
     kernels = [
         dict(name="llgs_pulse", route="cuda", source=pulse,
@@ -854,28 +1008,33 @@ def main():
              launches=launches["llgs_pulse"],
              max_abs_err=max(det_err, thermal_err, t_main["max_abs_err"]),
              ms=t_main["ms"], plain_ms=t_main["plain_ms"], bound_ms=t_main["bound_ms"],
-             bound_by=t_main["bound_by"], library_ms=None),
+             bound_by=t_main["bound_by"], library_ms=None, chain_floor_ms=floors["K1"],
+             deterministic_ms=t_det["ms"],
+             deterministic_chain_floor_ms=floors["K1 deterministic"]),
         dict(name="llgs_pulse_bf16", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:316",
              launches=launches["llgs_pulse_bf16"],
              max_abs_err=max(bf16_err, bf16_thermal_err, t_main["bf16_max_abs_err"]),
              ms=t_main["bf16_ms"], plain_ms=t_main["bf16_plain_ms"], bound_ms=t_main["bound_ms"],
-             bound_by=t_main["bound_by"], library_ms=None),
+             bound_by=t_main["bound_by"], library_ms=None, chain_floor_ms=floors["K6"],
+             deterministic_ms=t_det["bf16_ms"],
+             deterministic_chain_floor_ms=floors["K6 deterministic"]),
         dict(name="probe_add_one", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:118",
              launches=launches["probe_add_one"], max_abs_err=probe_err,
              ms=probe_ms, plain_ms=probe_plain_ms, bound_ms=probe_bound[0],
-             bound_by=probe_bound[1], library_ms=probe_library_ms),
+             bound_by=probe_bound[1], library_ms=probe_library_ms, chain_floor_ms=None,
+             device_ms=probe_device_ms, library_device_ms=add_device_ms),
         dict(name="llgs_pulse_sharded", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:720",
              launches=dp_launches, max_abs_err=k5_err,
              ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound[0], bound_by=k5_bound[1],
-             library_ms=None),
+             library_ms=None, chain_floor_ms=floors["K5"]),
         dict(name="op_chain", route="cuda", source="spintorque_tpu_torch/csrc/op_chain.cu",
              replaces="scripts/bench_vpu_op_costs.py:43",
              launches=k7_launches, max_abs_err=k7_err,
              ms=k7_ms, plain_ms=k7_plain_ms, bound_ms=k7_bound[0], bound_by=k7_bound[1],
-             library_ms=None),
+             library_ms=None, chain_floor_ms=None),
     ]
     RECORD["kernels"] = kernels
     out_dir = os.path.join(ROOT, "build")

@@ -1,62 +1,89 @@
-// Masked LLGS pulse integrator for NVIDIA Hopper (sm_90a), one thread per env.
+// Masked LLGS pulse integrator for NVIDIA Hopper (sm_90a): one thread per env
+// integrates, and in thermal runs producer warps draw its noise ahead of it.
 //
 // Replaces the Pallas TPU kernel spintorque_tpu/ops/pallas_integrator.py::_kernel
 // (launched by _pallas_core), both its float32 form (K1) and its bf16_rhs
-// branch (K6, pallas_integrator.py:316-356 and substep_delta). Each thread
-// integrates one env for its own count of substeps n[env] (Euler, stochastic
-// Heun or RK4, each followed by the normalize-with-fallback of
-// physics/llgs.py) and flags the env as failed when a substep yields an exact
-// zero vector. An env whose n is reached holds its state,
-// which is the masked loop's semantics. The operations and their order are those
-// of the plain version (spintorque_tpu_torch/physics/integrator.py), so the two
-// agree to the last bit or so in the deterministic case. Build without fast math
-// and with --fmad=false: true division, sqrtf and unfused products are part of
-// that agreement.
+// branch (K6, pallas_integrator.py:316-356 and substep_delta). Each env runs
+// its own count of substeps n[env] (Euler, stochastic Heun or RK4, each
+// followed by the normalize-with-fallback of physics/llgs.py) and is flagged
+// failed when a substep yields an exact zero vector. An env whose n is reached
+// holds its state, which is the masked loop's semantics. The arithmetic is in
+// llgs_substep.cuh, in the op order of the plain version
+// (spintorque_tpu_torch/physics/integrator.py), so the two agree bit for bit;
+// build without fast math and with --fmad=false.
 //
-// What bounds it on an H100: latency. A substep is a serial chain of ~150
-// dependent float operations (more with thermal noise: Philox rounds, a log, a
-// sqrt and two short polynomials); the state is 3 floats in registers and
-// device memory is touched only to load ~14 values and store 4 per env. With
-// one thread per env, B=4096 is 128 warps on 132 SMs, so each SM holds about
-// one warp and the kernel time is one warp's chain length. The wrapper sorts envs
-// by descending n (torch.argsort) and passes the permutation: thread t reads and
-// writes env perm[t], so a warp holds envs of similar n and runs to its own
-// longest, as a TPU tile ran to its own bound. Thermal counters use the env's
-// global index env_offset + perm[t], so the stream depends on neither the sort
-// nor the block size.
+// What bounds it on an H100: latency. One env's substeps form a serial chain
+// of dependent float operations (ops.cuda_integrator.pulse_chain_depth counts
+// them by class: ~60 adds and multiplies, a square root, a division and a few
+// selects per RK4 substep); the state is 3 floats in registers, and device
+// memory is touched only to load ~14 values and store 4 per env. The kernel
+// ends with its longest env, so its floor is that env's substeps times the
+// chain's latency, whatever the batch. The design keeps everything else off
+// that chain:
+//
+//  * Warp roles. A block holds one consumer warp, whose 32 lanes integrate 32
+//    envs, one each, with the state in registers. B=4096 is 128 blocks, one
+//    consumer warp per SM on 128 of the 132 SMs. Deterministic launches are
+//    the consumer warp alone.
+//  * The thermal sampler on producer warps. The thermal field of a substep
+//    depends on (env, substep, seed) only, never on m, so in thermal launches
+//    the block adds kProducers producer warps (beside the consumer on the
+//    SM's other sub-partitions). Producer lane l draws the
+//    fields of the consumer's lane l (Philox4x32-10, Box-Muller's log and
+//    sqrt, the folded cos/sin; sigma * normal rounded to the stage type) up to
+//    that env's own n and writes them to a ring in shared memory. The Philox
+//    counters are those the plain version draws, (env_offset + env, i, draw,
+//    0), so K5 equals the unsharded launch bit for bit.
+//  * The ring. Substeps go in chunks of kChunk (kChunk / 2 for per-stage
+//    RK4, whose records are three times as large); each producer owns
+//    kSlotsPerProducer slots, and chunk k is producer k % kProducers's. Every
+//    slot has an mbarrier pair: `full` (32 producer arrivals, release) and
+//    `empty` (32 consumer arrivals). The consumer waits once per chunk, then
+//    reads each substep's record (one 16-byte ld.shared per lane; three for
+//    per-stage RK4, whose four stages take fresh fields) one substep ahead of
+//    use. Consecutive lanes read consecutive records, so no bank conflicts.
+//  * The sort. The wrapper sorts envs by descending n (torch.argsort) and
+//    passes the permutation: consumer lane t reads and writes env perm[t], so
+//    a warp holds envs of similar n and runs to its own longest, as a TPU
+//    tile ran to its own bound. Thermal counters use the env's global index,
+//    so the stream depends on neither the sort nor the block shape.
 //
 // K5, the sharded pulse of the data-parallel path, is this kernel launched on
 // one shard of the batch (replacing _integrate_pulse_pallas_sharded and
 // _shard_seed, pallas_integrator.py:689-746, which run K1 per shard under
 // shard_map with a per-shard seed offset). Each shard sorts its own envs, and
 // env_offset, the shard's first global row, keys the noise: a shard draws
-// exactly its rows of the unsharded stream, so a sharded pulse equals the
-// unsharded one bit for bit, thermal included. Its bound is K1's.
+// exactly its rows of the unsharded stream. Its bound is K1's.
 //
 // K6 is the same kernel with the stage value type T = Bf16: the coefficients,
-// dt, a bf16 copy of the state and the thermal field (sigma * normal in float,
-// then rounded) enter the right-hand side in bf16, and every operation on them
-// widens to float, does the one op and rounds back to nearest even, which is
-// how PyTorch computes a bf16 tensor op. The increment is widened and added to
-// the float state, which is normalized in float. Its plain version runs the
-// same ops on bf16 tensors, so the two agree bit for bit. The bf16 operators
-// are written out here rather than taken from cuda_bf16.h, whose operators
-// and __hfma may be contracted into fma.rn.bf16; with T = float the code is
-// K1's, operation for operation. The rounding adds a cvt per operation to
-// K1's chain, so K6 is not expected to be faster than K1 on this card: its
-// stage arithmetic runs on the float pipes either way.
+// dt, a bf16 copy of the state and the thermal field enter the right-hand side
+// in bf16, and every operation on them widens to float, does the one op and
+// rounds back to nearest even, which is how PyTorch computes a bf16 tensor op.
+// The bf16 operators are written out rather than taken from cuda_bf16.h,
+// whose operators and __hfma may be contracted into fma.rn.bf16. The rounding
+// adds a cvt and a widening to every stage op of the chain, so K6 is slower
+// than K1 on this card: its stage arithmetic runs on the float pipes either
+// way.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "philox.cuh"
+#include "llgs_substep.cuh"
 
 namespace spintorque {
 
-enum Method { kEuler = 0, kHeun = 1, kRk4 = 2 };
+// Producer warps of a thermal block: one, two and three tie at B=4096, three
+// is fastest at B=65536, where blocks share SMs (PERF.md, the design timings).
+constexpr int kProducers = 3;
+constexpr int kThermalBlock = 32 * (1 + kProducers);
+constexpr int kChunk = 8;  // substeps per ring slot; half that for per-stage RK4
+constexpr int kSlotsPerProducer = 2;
+constexpr int kSlots = kProducers * kSlotsPerProducer;
 
-constexpr int kMaxBlock = 256;
+template <bool PER_STAGE>
+__host__ __device__ constexpr int chunk_substeps() {
+  return PER_STAGE ? kChunk / 2 : kChunk;
+}
 
 struct PulseArgs {
   const float* mx0;
@@ -84,116 +111,49 @@ struct PulseArgs {
   uint32_t env_offset;  // global index of env 0 of this batch (K5's shard offset)
 };
 
-// A bf16 value; each operation is a PyTorch bf16 op: float opmath, one
-// rounding to nearest even. A float operand stands for a Python scalar.
-struct Bf16 {
-  __nv_bfloat16 v;
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(Bf16 x) { return __bfloat162float(x.v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ Bf16 from_f32<Bf16>(float x) {
-  return Bf16{__float2bfloat16_rn(x)};
+// Dynamic shared memory of a thermal launch: the ring. At most 36 KB
+// (per-stage RK4), so with the barriers it stays under the 48 KB a block gets
+// without opting in.
+template <bool PER_STAGE>
+constexpr size_t ring_bytes() {
+  return static_cast<size_t>(kSlots) * chunk_substeps<PER_STAGE>() *
+         records_per_substep<PER_STAGE>() * 32 * sizeof(float4);
 }
 
-__device__ __forceinline__ Bf16 operator+(Bf16 a, Bf16 b) {
-  return from_f32<Bf16>(to_f32(a) + to_f32(b));
-}
-__device__ __forceinline__ Bf16 operator-(Bf16 a, Bf16 b) {
-  return from_f32<Bf16>(to_f32(a) - to_f32(b));
-}
-__device__ __forceinline__ Bf16 operator*(Bf16 a, Bf16 b) {
-  return from_f32<Bf16>(to_f32(a) * to_f32(b));
-}
-__device__ __forceinline__ Bf16 operator-(Bf16 a) { return from_f32<Bf16>(-to_f32(a)); }
-__device__ __forceinline__ Bf16 operator*(float a, Bf16 b) {
-  return from_f32<Bf16>(a * to_f32(b));
-}
-__device__ __forceinline__ Bf16 operator/(Bf16 a, float b) {
-  return from_f32<Bf16>(to_f32(a) / b);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-struct Coeffs {
-  T h_k, ms, neg_gamma_eff, alpha, stt, ex, ey, ez;
-};
-
-// dm/dt with the thermal field (tx, ty, tz); the op order of llgs.dmdt_from.
-template <typename T, bool THERMAL, bool PLUS_Z>
-__device__ __forceinline__ void rhs(T mx, T my, T mz, T tx, T ty, T tz, const Coeffs<T>& c, T& fx,
-                                    T& fy, T& fz) {
-  T hx, hy, hz, vx, vy, vz;
-  if (PLUS_Z) {
-    // e = (0, 0, 1): the projections collapse and the axis loads disappear.
-    const T anis = c.h_k * mz;
-    hx = from_f32<T>(0.0f);
-    hy = from_f32<T>(0.0f);
-    hz = anis - c.ms * mz;
-    // u = m x z = (my, -mx, 0); v = m x u.
-    const T ux = my;
-    const T uy = -mx;
-    vx = -(mz * uy);
-    vy = mz * ux;
-    vz = mx * uy - my * ux;
-  } else {
-    const T m_dot_e = mx * c.ex + my * c.ey + mz * c.ez;
-    const T anis = c.h_k * m_dot_e;
-    hx = anis * c.ex;
-    hy = anis * c.ey;
-    hz = anis * c.ez - c.ms * mz;
-    const T ux = my * c.ez - mz * c.ey;
-    const T uy = mz * c.ex - mx * c.ez;
-    const T uz = mx * c.ey - my * c.ex;
-    vx = my * uz - mz * uy;
-    vy = mz * ux - mx * uz;
-    vz = mx * uy - my * ux;
-  }
-  if (THERMAL) {
-    hx = hx + tx;
-    hy = hy + ty;
-    hz = hz + tz;
-  }
-  const T px = my * hz - mz * hy;  // precession m x H
-  const T py = mz * hx - mx * hz;
-  const T pz = mx * hy - my * hx;
-  const T dx = my * pz - mz * py;  // damping m x (m x H)
-  const T dy = mz * px - mx * pz;
-  const T dz = mx * py - my * px;
-  fx = c.neg_gamma_eff * (px + c.alpha * dx) + c.stt * vx;
-  fy = c.neg_gamma_eff * (py + c.alpha * dy) + c.stt * vy;
-  fz = c.neg_gamma_eff * (pz + c.alpha * dz) + c.stt * vz;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
 }
 
-// NaN/Inf or |m| < 1e-12 maps to +z; true division.
-__device__ __forceinline__ void normalize_with_fallback(float& x, float& y, float& z) {
-  const float norm = sqrtf(x * x + y * y + z * z);
-  bool ok = isfinite(x) && isfinite(y) && isfinite(z) && (norm >= (float)1e-12);
-  const float safe = ok ? norm : 1.0f;
-  const float nx = x / safe;
-  const float ny = y / safe;
-  const float nz = z / safe;
-  ok = ok && isfinite(nx) && isfinite(ny) && isfinite(nz);
-  x = ok ? nx : 0.0f;
-  y = ok ? ny : 0.0f;
-  z = ok ? nz : 1.0f;
+// Arrive with release semantics: this thread's shared-memory writes (or
+// reads) are ordered before the phase completes.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
-template <typename T, int METHOD, bool THERMAL, bool PER_STAGE, bool PLUS_Z>
-__global__ void __launch_bounds__(kMaxBlock) pulse_kernel(const PulseArgs a) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= a.batch) return;
-  const int64_t env = a.perm[t];
-  // The Philox counter's env word: the wrapper checks env_offset + batch <= 2^32.
-  const uint32_t key_env = a.env_offset + static_cast<uint32_t>(env);
+// Wait, with acquire semantics, for the completion of the phase of parity
+// `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
+template <typename T, bool PLUS_Z>
+__device__ __forceinline__ Coeffs<T> load_coeffs(const PulseArgs& a, int64_t env) {
   Coeffs<T> c;
   c.h_k = from_f32<T>(a.h_k[env]);
   c.ms = from_f32<T>(a.ms[env]);
@@ -205,131 +165,167 @@ __global__ void __launch_bounds__(kMaxBlock) pulse_kernel(const PulseArgs a) {
     c.ey = from_f32<T>(a.ey[env]);
     c.ez = from_f32<T>(a.ez[env]);
   }
-  const int n = a.n[env];
+  return c;
+}
+
+// The consumer lane of env `env` (live: a real env of the batch, else n = 0):
+// integrates n substeps, reading thermal fields from the ring when THERMAL.
+template <typename T, int METHOD, bool THERMAL, bool PER_STAGE, bool PLUS_Z>
+__device__ __forceinline__ void consume(const PulseArgs& a, bool live, int64_t env, int n,
+                                        int chunks, const float4* ring, uint64_t* full,
+                                        uint64_t* empty) {
+  constexpr int R = records_per_substep<PER_STAGE>();
+  constexpr int C = chunk_substeps<PER_STAGE>();
+  const Coeffs<T> c = load_coeffs<T, PLUS_Z>(a, env);
   const T dt = from_f32<T>(a.dt[env]);
-  const float sigma = THERMAL ? a.sigma[env] : 0.0f;
   float mx = a.mx0[env];
   float my = a.my0[env];
   float mz = a.mz0[env];
   bool failed = false;
+  T h[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) h[k] = from_f32<T>(0.0f);
 
-  for (int i = 0; i < n; ++i) {
-    // Thermal field of each RK stage: per-stage RK4 takes normals 3s..3s+2 of
-    // three Philox calls, every other case normals 0..2 of one call.
-    T h[12];
-    if (THERMAL) {
-      float g[12];
-      normals4(key_env, static_cast<uint32_t>(i), 0u, a.seed_lo, a.seed_hi, g);
-      if (PER_STAGE) {
-        normals4(key_env, static_cast<uint32_t>(i), 1u, a.seed_lo, a.seed_hi, g + 4);
-        normals4(key_env, static_cast<uint32_t>(i), 2u, a.seed_lo, a.seed_hi, g + 8);
+  if constexpr (!THERMAL) {
+    for (int i = 0; i < n; ++i) failed |= substep<T, METHOD, false, PLUS_Z>(mx, my, mz, h, c, dt);
+  } else {
+    const int lane = threadIdx.x & 31;
+    int p = 0;  // chunk k is producer p's u-th
+    int u = 0;
+    for (int k = 0; k < chunks; ++k) {
+      const int s = p * kSlotsPerProducer + (u % kSlotsPerProducer);
+      mbar_wait(&full[s], (u / kSlotsPerProducer) & 1);
+      const float4* slot = ring + s * (C * R * 32) + lane;
+      const int len = min(C, n - k * C);
+      float4 rec[R];
+      if (len > 0) {
 #pragma unroll
-        for (int k = 0; k < 12; ++k) h[k] = from_f32<T>(sigma * g[k]);
-      } else {
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          h[3 * s] = from_f32<T>(sigma * g[0]);
-          h[3 * s + 1] = from_f32<T>(sigma * g[1]);
-          h[3 * s + 2] = from_f32<T>(sigma * g[2]);
-        }
+        for (int r = 0; r < R; ++r) rec[r] = slot[r * 32];
       }
-    } else {
+      for (int j = 0; j < len; ++j) {
+        stage_fields<T, PER_STAGE>(rec, h);
+        if (j + 1 < len) {
 #pragma unroll
-      for (int k = 0; k < 12; ++k) h[k] = from_f32<T>(0.0f);
+          for (int r = 0; r < R; ++r) rec[r] = slot[((j + 1) * R + r) * 32];
+        }
+        failed |= substep<T, METHOD, true, PLUS_Z>(mx, my, mz, h, c, dt);
+      }
+      mbar_arrive(&empty[s]);
+      if (++p == kProducers) {
+        p = 0;
+        ++u;
+      }
     }
-
-    // The stages read a copy of the state in T; the increment (dx, dy, dz)
-    // is widened and added to the float state.
-    const T sx = from_f32<T>(mx);
-    const T sy = from_f32<T>(my);
-    const T sz = from_f32<T>(mz);
-    T dx, dy, dz;
-    if (METHOD == kEuler) {
-      T fx, fy, fz;
-      rhs<T, THERMAL, PLUS_Z>(sx, sy, sz, h[0], h[1], h[2], c, fx, fy, fz);
-      dx = dt * fx;
-      dy = dt * fy;
-      dz = dt * fz;
-    } else if (METHOD == kHeun) {
-      // Stochastic Heun: the corrector reuses the predictor's noise.
-      T fx, fy, fz, gx, gy, gz;
-      rhs<T, THERMAL, PLUS_Z>(sx, sy, sz, h[0], h[1], h[2], c, fx, fy, fz);
-      rhs<T, THERMAL, PLUS_Z>(sx + dt * fx, sy + dt * fy, sz + dt * fz, h[0], h[1], h[2], c, gx,
-                              gy, gz);
-      const T half_dt = 0.5f * dt;
-      dx = half_dt * (fx + gx);
-      dy = half_dt * (fy + gy);
-      dz = half_dt * (fz + gz);
-    } else {
-      T k1x, k1y, k1z, k2x, k2y, k2z, k3x, k3y, k3z, k4x, k4y, k4z;
-      rhs<T, THERMAL, PLUS_Z>(sx, sy, sz, h[0], h[1], h[2], c, k1x, k1y, k1z);
-      k1x = dt * k1x;
-      k1y = dt * k1y;
-      k1z = dt * k1z;
-      rhs<T, THERMAL, PLUS_Z>(sx + k1x / 2.0f, sy + k1y / 2.0f, sz + k1z / 2.0f, h[3], h[4], h[5],
-                              c, k2x, k2y, k2z);
-      k2x = dt * k2x;
-      k2y = dt * k2y;
-      k2z = dt * k2z;
-      rhs<T, THERMAL, PLUS_Z>(sx + k2x / 2.0f, sy + k2y / 2.0f, sz + k2z / 2.0f, h[6], h[7], h[8],
-                              c, k3x, k3y, k3z);
-      k3x = dt * k3x;
-      k3y = dt * k3y;
-      k3z = dt * k3z;
-      rhs<T, THERMAL, PLUS_Z>(sx + k3x, sy + k3y, sz + k3z, h[9], h[10], h[11], c, k4x, k4y, k4z);
-      k4x = dt * k4x;
-      k4y = dt * k4y;
-      k4z = dt * k4z;
-      dx = (k1x + 2.0f * k2x + 2.0f * k3x + k4x) / 6.0f;
-      dy = (k1y + 2.0f * k2y + 2.0f * k3y + k4y) / 6.0f;
-      dz = (k1z + 2.0f * k2z + 2.0f * k3z + k4z) / 6.0f;
-    }
-    float nx = mx + to_f32(dx);
-    float ny = my + to_f32(dy);
-    float nz = mz + to_f32(dz);
-    normalize_with_fallback(nx, ny, nz);
-    failed = failed || (nx == 0.0f && ny == 0.0f && nz == 0.0f);
-    mx = nx;
-    my = ny;
-    mz = nz;
   }
-  a.mx[env] = mx;
-  a.my[env] = my;
-  a.mz[env] = mz;
-  a.failed[env] = failed;
+  if (live) {
+    a.mx[env] = mx;
+    a.my[env] = my;
+    a.mz[env] = mz;
+    a.failed[env] = failed;
+  }
 }
 
-template <typename T, int METHOD, bool THERMAL, bool PER_STAGE>
-cudaError_t launch(const PulseArgs& a, bool plus_z, int block, cudaStream_t stream) {
-  const int grid = (a.batch + block - 1) / block;
-  if (plus_z) {
-    pulse_kernel<T, METHOD, THERMAL, PER_STAGE, true><<<grid, block, 0, stream>>>(a);
-  } else {
-    pulse_kernel<T, METHOD, THERMAL, PER_STAGE, false><<<grid, block, 0, stream>>>(a);
+// Producer warp q: fills the ring slots of chunks q, q + kProducers, ...
+// with the thermal records of its lane's env, up to that env's n.
+template <typename T, bool PER_STAGE>
+__device__ __forceinline__ void produce(const PulseArgs& a, bool live, int64_t env, int n,
+                                        int chunks, int q, float4* ring, uint64_t* full,
+                                        uint64_t* empty) {
+  constexpr int R = records_per_substep<PER_STAGE>();
+  constexpr int C = chunk_substeps<PER_STAGE>();
+  const int lane = threadIdx.x & 31;
+  // The Philox counter's env word: the wrapper checks env_offset + batch <= 2^32.
+  const uint32_t key_env = a.env_offset + static_cast<uint32_t>(env);
+  const float sigma = live ? a.sigma[env] : 0.0f;
+  for (int k = q, u = 0; k < chunks; k += kProducers, ++u) {
+    const int s = q * kSlotsPerProducer + (u % kSlotsPerProducer);
+    // The first use of each slot passes at once (parity 1 of a fresh barrier).
+    mbar_wait(&empty[s], ((u / kSlotsPerProducer) & 1) ^ 1);
+    float4* slot = ring + s * (C * R * 32) + lane;
+    const int i0 = k * C;
+    const int len = min(C, n - i0);
+    for (int j = 0; j < len; ++j) {
+      float4 rec[R];
+      thermal_records<T, PER_STAGE>(key_env, static_cast<uint32_t>(i0 + j), a.seed_lo, a.seed_hi,
+                                    sigma, rec);
+#pragma unroll
+      for (int r = 0; r < R; ++r) slot[(j * R + r) * 32] = rec[r];
+    }
+    mbar_arrive(&full[s]);
   }
+}
+
+// Block b: consumer warp 0 integrates sorted envs 32b..32b+31; in thermal
+// launches warps 1..kProducers feed it through the ring.
+template <typename T, int METHOD, bool THERMAL, bool PER_STAGE, bool PLUS_Z>
+__global__ void __launch_bounds__(kThermalBlock) pulse_kernel(const PulseArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = blockIdx.x * 32 + lane;
+  const bool live = t < a.batch;
+  const int64_t env = live ? a.perm[t] : 0;
+  const int n = live ? a.n[env] : 0;
+  if constexpr (!THERMAL) {
+    consume<T, METHOD, false, PER_STAGE, PLUS_Z>(a, live, env, n, 0, nullptr, nullptr, nullptr);
+  } else {
+    extern __shared__ float4 ring[];
+    __shared__ __align__(8) uint64_t full[kSlots];
+    __shared__ __align__(8) uint64_t empty[kSlots];
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kSlots; ++s) {
+        mbar_init(&full[s], 32);
+        mbar_init(&empty[s], 32);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    // Every warp of the block holds the same 32 envs, so all agree on the
+    // number of chunks: the longest env's.
+    constexpr int C = chunk_substeps<PER_STAGE>();
+    const int chunks = (__reduce_max_sync(0xffffffffu, n) + C - 1) / C;
+    if (warp == 0) {
+      consume<T, METHOD, true, PER_STAGE, PLUS_Z>(a, live, env, n, chunks, ring, full, empty);
+    } else {
+      produce<T, PER_STAGE>(a, live, env, n, chunks, warp - 1, ring, full, empty);
+    }
+  }
+}
+
+template <typename T, int METHOD, bool THERMAL, bool PER_STAGE, bool PLUS_Z>
+cudaError_t launch_instance(const PulseArgs& a, cudaStream_t stream) {
+  const int grid = (a.batch + 31) / 32;
+  const int block = THERMAL ? kThermalBlock : 32;
+  const size_t smem = THERMAL ? ring_bytes<PER_STAGE>() : 0;
+  pulse_kernel<T, METHOD, THERMAL, PER_STAGE, PLUS_Z><<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <typename T, int METHOD, bool THERMAL, bool PER_STAGE>
+cudaError_t launch(const PulseArgs& a, bool plus_z, cudaStream_t stream) {
+  return plus_z ? launch_instance<T, METHOD, THERMAL, PER_STAGE, true>(a, stream)
+                : launch_instance<T, METHOD, THERMAL, PER_STAGE, false>(a, stream);
+}
+
 template <typename T, int METHOD>
-cudaError_t launch_method(const PulseArgs& a, bool thermal, bool per_stage, bool plus_z, int block,
+cudaError_t launch_method(const PulseArgs& a, bool thermal, bool per_stage, bool plus_z,
                           cudaStream_t stream) {
-  if (!thermal) return launch<T, METHOD, false, false>(a, plus_z, block, stream);
+  if (!thermal) return launch<T, METHOD, false, false>(a, plus_z, stream);
   if constexpr (METHOD == kRk4) {
-    if (per_stage) return launch<T, METHOD, true, true>(a, plus_z, block, stream);
+    if (per_stage) return launch<T, METHOD, true, true>(a, plus_z, stream);
   }
-  return launch<T, METHOD, true, false>(a, plus_z, block, stream);
+  return launch<T, METHOD, true, false>(a, plus_z, stream);
 }
 
 template <typename T>
 cudaError_t launch_type(const PulseArgs& a, int method, bool thermal, bool per_stage, bool plus_z,
-                        int block, cudaStream_t stream) {
+                        cudaStream_t stream) {
   switch (method) {
     case kEuler:
-      return launch_method<T, kEuler>(a, thermal, per_stage, plus_z, block, stream);
+      return launch_method<T, kEuler>(a, thermal, per_stage, plus_z, stream);
     case kHeun:
-      return launch_method<T, kHeun>(a, thermal, per_stage, plus_z, block, stream);
+      return launch_method<T, kHeun>(a, thermal, per_stage, plus_z, stream);
     case kRk4:
-      return launch_method<T, kRk4>(a, thermal, per_stage, plus_z, block, stream);
+      return launch_method<T, kRk4>(a, thermal, per_stage, plus_z, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -338,6 +334,29 @@ cudaError_t launch_type(const PulseArgs& a, int method, bool thermal, bool per_s
 __global__ void probe_add_one_kernel(const float* x, float* y, int count) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < count) y[i] = x[i] + 1.0f;
+}
+
+// Over all 2^32 float32 bit patterns x, counts where div6(x) and the IEEE
+// quotient x / 6.0f differ: counts[0] in value (any bit, unless both are
+// NaN), counts[1] in a NaN's payload only.
+__global__ void check_div6_kernel(unsigned long long* counts) {
+  const uint32_t stride = gridDim.x * blockDim.x;
+  unsigned long long bad = 0;
+  unsigned long long payload = 0;
+  for (uint64_t b = blockIdx.x * blockDim.x + threadIdx.x; b < (1ull << 32); b += stride) {
+    const float x = __uint_as_float(static_cast<uint32_t>(b));
+    const float got = div6(x);
+    const float want = x / 6.0f;
+    if (__float_as_uint(got) != __float_as_uint(want)) {
+      if (isnan(got) && isnan(want)) {
+        ++payload;
+      } else {
+        ++bad;
+      }
+    }
+  }
+  atomicAdd(&counts[0], bad);
+  atomicAdd(&counts[1], payload);
 }
 
 }  // namespace spintorque
@@ -351,18 +370,16 @@ extern "C" int spintorque_pulse_integrate(
     const float* alpha, const float* stt, const float* ex, const float* ey, const float* ez,
     const int64_t* perm, float* mx, float* my, float* mz, bool* failed, int batch, int method,
     int thermal, int per_stage, int plus_z, int bf16, unsigned int seed_lo, unsigned int seed_hi,
-    unsigned int env_offset, int block, void* stream) {
+    unsigned int env_offset, void* stream) {
   using namespace spintorque;
-  if (batch <= 0 || block <= 0 || block > kMaxBlock || block % 32 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (batch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const PulseArgs a{mx0, my0, mz0, n, dt, sigma, h_k, ms, neg_gamma_eff, alpha, stt, ex, ey,
                     ez, perm, mx, my, mz, failed, batch, seed_lo, seed_hi, env_offset};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return static_cast<int>(launch_type<Bf16>(a, method, thermal, per_stage, plus_z, block, s));
+    return static_cast<int>(launch_type<Bf16>(a, method, thermal, per_stage, plus_z, s));
   }
-  return static_cast<int>(launch_type<float>(a, method, thermal, per_stage, plus_z, block, s));
+  return static_cast<int>(launch_type<float>(a, method, thermal, per_stage, plus_z, s));
 }
 
 // The fast-path probe: y = x + 1 over `count` floats.
@@ -371,5 +388,13 @@ extern "C" int spintorque_probe_add_one(const float* x, float* y, int count, voi
   const int block = 128;
   spintorque::probe_add_one_kernel<<<(count + block - 1) / block, block, 0,
                                      static_cast<cudaStream_t>(stream)>>>(x, y, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The exhaustive check of div6: adds to counts[0] (of two zeroed device
+// counters) the float32 inputs where div6(x) and x / 6.0f differ in value,
+// and to counts[1] those where both are NaN with other payloads.
+extern "C" int spintorque_check_div6(unsigned long long* counts, void* stream) {
+  spintorque::check_div6_kernel<<<132 * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(counts);
   return static_cast<int>(cudaGetLastError());
 }

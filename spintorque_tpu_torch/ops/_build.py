@@ -12,6 +12,11 @@ takes seconds.
 Flags: no ``--use_fast_math`` and ``--fmad=false``, because the kernels are
 held to their plain PyTorch versions to a few ulps, and true division,
 ``sqrtf`` and unfused products are part of that.
+
+Every kernel wrapper (``ops.cuda_integrator``'s probe and pulse,
+``ops.op_chain.op_chain``) calls its C entry point through ``launch``, with
+the function ``kernel_fn`` binds once, so that a call costs little more host
+time than a PyTorch op.
 """
 
 from __future__ import annotations
@@ -19,12 +24,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -83,6 +91,35 @@ def _run(cmd):
     return log
 
 
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel in ``nvcc -Xptxas -v`` output (the build log): its
+    ``registers`` per thread, ``stack`` frame bytes and ``spill_stores`` /
+    ``spill_loads`` bytes, keyed by mangled name. A spill is a register
+    array or live value that ptxas moved to local memory."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = props = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props in out:
+            out[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
 _LIBRARY: Optional[KernelLibrary] = None
 
 
@@ -122,16 +159,46 @@ def load_library() -> KernelLibrary:
     return _LIBRARY
 
 
+_KERNEL_FNS: Dict[str, object] = {}
+
+
+def kernel_fn(name: str):
+    """The library's C entry point ``name``, bound at first use (building
+    and loading the library then if needed)."""
+    fn = _KERNEL_FNS.get(name)
+    if fn is None:
+        fn = _KERNEL_FNS[name] = getattr(load_library().lib, name)
+    return fn
+
+
+def launch(fn, device, *args) -> int:
+    """Calls the C entry point ``fn(*args, stream)`` on ``device``'s current
+    stream, entering a device guard only when ``device`` is not the current
+    device, and returns its cudaError code. The stream is read as a raw
+    handle by ``torch._C._cuda_getCurrentRawStream``, a private call: the
+    public ``torch.cuda.current_stream`` builds a ``Stream`` object on every
+    call."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     # A pointer or the stream is c_void_p: ctypes would pass a bare Python
     # int as a 32-bit int.
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     # 19 pointers; batch, method, thermal, per_stage, plus_z, bf16; seed_lo,
-    # seed_hi, env_offset; block; stream.
-    lib.spintorque_pulse_integrate.argtypes = [p] * 19 + [i] * 6 + [u, u, u, i, p]
+    # seed_hi, env_offset; stream.
+    lib.spintorque_pulse_integrate.argtypes = [p] * 19 + [i] * 6 + [u, u, u, p]
     lib.spintorque_pulse_integrate.restype = i
     lib.spintorque_probe_add_one.argtypes = [p, p, i, p]
     lib.spintorque_probe_add_one.restype = i
+    # counts, stream.
+    lib.spintorque_check_div6.argtypes = [p, p]
+    lib.spintorque_check_div6.restype = i
     # x, y, count, op, steps, block, stream.
     lib.spintorque_op_chain.argtypes = [p, p, i, i, i, i, p]
     lib.spintorque_op_chain.restype = i

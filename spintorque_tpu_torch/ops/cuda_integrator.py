@@ -19,11 +19,18 @@ others in ``PULSE_LAUNCHES`` (K1) or ``PULSE_BF16_LAUNCHES`` (K6).
 Dispatch is by device: ``physics.integrator.integrate_pulse`` sends CUDA
 tensors here, and this wrapper launches the kernel or raises. It never falls
 back to the plain version.
+
+The kernel's design (one consumer warp of 32 envs per block, the thermal
+sampler on producer warps feeding it through a ring in shared memory) is
+described in its source; ``pulse_chain_depth`` gives the dependent depth
+of one substep that bounds it, and ``pulse_chain_floor_ms`` that depth
+priced at measured op latencies. The wrappers launch through
+``ops._build.launch``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -42,9 +49,10 @@ from .philox import seed_key
 
 Tensor = torch.Tensor
 
-# Threads per block. One thread per env; B=4096 fills only 128 warps, so
-# small blocks spread them over more SMs.
-PULSE_BLOCK = 64
+# Substeps per slot of the kernel's thermal ring (kChunk in
+# csrc/pulse_integrator.cu; half that for per-stage RK4), for tests that
+# place n at a chunk's edge.
+PULSE_CHUNK = 8
 _METHODS = {"euler": 0, "heun": 1, "rk4": 2}
 
 
@@ -119,6 +127,64 @@ def pulse_work(n_substeps: Tensor, config: IntegratorConfig, plus_z: bool) -> Tu
     return ops, bytes_moved
 
 
+# The dependent depth of one substep, counted from csrc/llgs_substep.cuh along
+# its longest path from the state to the next state, by op class (the
+# classes ops.op_chain prices). rhs: the deepest output of the right-hand
+# side in adds and multiplies (negations fold into their users), +z and
+# general axis; a thermal field adds its one add onto H. The stage ops of a
+# substep outside rhs: Euler dt * f; Heun dt * f, the predictor's add,
+# f + g and the half-step product; RK4 per stage dt * k, 0.5 * k and the
+# stage's add (two ops for the last stage), then the weighted sum's last
+# add. In float32 a T op is one op; in bf16 it is three (the widening, the
+# op, the rounding), plus the rounding of the state into T and the widening
+# of the increment. Then the state's add; RK4's div6 (a multiply and two
+# FMAs, then a select); normalize: the squared norm (a multiply and two
+# adds), the select that gives sqrt a finite input, sqrt, the compare and
+# the division. A non-finite increment takes the fallback to +z by a branch,
+# which skips the division. The thermal sampler runs on producer warps and
+# adds no depth.
+_RHS_DEPTH = {True: 10, False: 14}
+
+
+def pulse_chain_depth(
+    config: IntegratorConfig, plus_z: bool, fallback: bool = False
+) -> Dict[str, int]:
+    """The kernel's dependent depth of one substep by op class: ``simple``
+    (add, multiply, compare, FMA, conversion), ``select``, ``div``,
+    ``sqrt``, ``log`` and ``cos`` (the last two 0: the sampler is off the
+    chain). ``fallback``: the substep's increment is not finite, so the
+    normalization falls back to +z and does not divide (``div`` 0)."""
+    check_config(config)
+    r = _RHS_DEPTH[plus_z] + int(config.thermal)
+    stage_ops = {"euler": r + 1, "heun": 2 * r + 4, "rk4": 4 * r + 10}[config.method]
+    simple = 3 * stage_ops + 2 if config.bf16_rhs else stage_ops
+    select = 1
+    if config.method == "rk4":
+        simple += 3 + (2 if config.bf16_rhs else 0)  # div6, widened and rounded in bf16
+        select += 1
+    simple += 1 + 3 + 1  # the state's add; the squared norm; the compare
+    return {"simple": simple, "select": select, "div": int(not fallback), "sqrt": 1, "log": 0,
+            "cos": 0}
+
+
+def pulse_chain_floor_ms(
+    n_substeps: Tensor,
+    config: IntegratorConfig,
+    plus_z: bool,
+    latency_ns: Dict[str, float],
+    fallback: bool = False,
+) -> float:
+    """The least time of a pulse call at the chain's latency: the longest
+    env's substeps times ``pulse_chain_depth`` (on the fallback path when
+    ``fallback``) priced at ``latency_ns`` (ns per dependent op by class,
+    ``ops.op_chain.measure_op_costs``'s ``latency_ns``). The fallback path
+    is the shorter, so its floor holds whichever path the data takes. Reads
+    ``n_substeps`` to the host."""
+    n_max = int(n_substeps.max()) if n_substeps.numel() else 0
+    depth = pulse_chain_depth(config, plus_z, fallback)
+    return n_max * sum(d * latency_ns[c] for c, d in depth.items() if d) * 1e-6
+
+
 def _axis_on_host(easy_axis) -> torch.Tensor:
     return torch.as_tensor(easy_axis).detach().to("cpu", torch.float64).reshape(-1, 3)
 
@@ -176,21 +242,33 @@ def probe_add_one_plain(x: Tensor) -> Tensor:
 
 
 def probe_add_one(x: Tensor) -> Tensor:
-    """``x + 1`` by the probe kernel, on a contiguous float32 CUDA tensor."""
-    if x.device.type != "cuda":
+    """``x + 1`` by the probe kernel, on a nonempty contiguous float32 CUDA
+    tensor."""
+    if not (isinstance(x, Tensor) and x.is_cuda):
         raise ValueError("probe_add_one takes a CUDA tensor")
-    _check_tensor("x", x, x.device, x.shape)
-    if x.numel() == 0:
-        raise ValueError("probe_add_one: empty tensor")
-    lib = _build.load_library().lib
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() == 0:
+        raise ValueError("probe_add_one takes a nonempty contiguous float32 tensor")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.spintorque_probe_add_one(x.data_ptr(), y.data_ptr(), x.numel(), stream)
-        PROBE_LAUNCHES.count += 1
+    rc = _build.launch(_build.kernel_fn("spintorque_probe_add_one"), x.device, x.data_ptr(),
+                       y.data_ptr(), x.numel())
     if rc != 0:
         raise RuntimeError(f"probe kernel launch failed: cudaError {rc}")
+    PROBE_LAUNCHES.count += 1
     return y
+
+
+def check_div6(device="cuda") -> Tuple[int, int]:
+    """Runs the exhaustive check of the kernel's ``div6`` against the IEEE
+    quotient ``x / 6.0f`` over all 2^32 float32 inputs on the card, and
+    returns (inputs that differ in value, NaN inputs whose NaN results
+    differ only in payload). Synchronizes."""
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    rc = _build.launch(_build.kernel_fn("spintorque_check_div6"), counts.device,
+                       counts.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"div6 check kernel launch failed: cudaError {rc}")
+    bad, payload = counts.tolist()
+    return bad, payload
 
 
 def _check_tensor(name: str, t, device, shape, dtype=torch.float32) -> None:
@@ -235,14 +313,42 @@ def integrate_pulse_cuda(
     in the thermal stream; a ``sharded`` launch (default: a nonzero offset)
     is K5 and counts in ``PULSE_SHARDED_LAUNCHES``.
     """
+    mx0 = m0[0]
+    if not isinstance(mx0, Tensor) or mx0.device.type != "cuda":
+        raise ValueError("integrate_pulse_cuda takes CUDA tensors")
+    _check_tensor("span", span, mx0.device, mx0.shape)
+    check_config(config)
+    dt, n = clamped_substep_counts(span, config)
+    return launch_pulse(m0, dt, n, current, params, config, seed, temperature,
+                        env_offset=env_offset, sharded=sharded)
+
+
+def launch_pulse(
+    m0: Tuple[Tensor, Tensor, Tensor],
+    dt: Tensor,
+    n: Tensor,
+    current: Tensor,
+    params: LLGSParams,
+    config: IntegratorConfig,
+    seed: Optional[int] = None,
+    temperature=300.0,
+    *,
+    env_offset: int = 0,
+    sharded: Optional[bool] = None,
+) -> PulseResult:
+    """The pulse kernel's launch for given per-env substeps: env b runs
+    ``n[b]`` (int32) substeps of ``dt[b]`` (``integrate_pulse_cuda`` takes
+    both from the dt law; a test may pass any counts, 0 included). The other
+    arguments and the checks are ``integrate_pulse_cuda``'s."""
     check_config(config)
     mx0, my0, mz0 = m0
     if not isinstance(mx0, Tensor) or mx0.device.type != "cuda":
         raise ValueError("integrate_pulse_cuda takes CUDA tensors")
     device = mx0.device
     batch = mx0.shape[0] if mx0.dim() == 1 else -1
-    for name, t in (("mx0", mx0), ("my0", my0), ("mz0", mz0), ("span", span), ("current", current)):
+    for name, t in (("mx0", mx0), ("my0", my0), ("mz0", mz0), ("dt", dt), ("current", current)):
         _check_tensor(name, t, device, (batch,))
+    _check_tensor("n", n, device, (batch,), torch.int32)
     if config.thermal and seed is None:
         raise ValueError("integrate_pulse: thermal=True requires a seed")
     check_env_offset(env_offset, batch)
@@ -250,7 +356,6 @@ def integrate_pulse_cuda(
         sharded = env_offset != 0
     plus_z = params.plus_z if params.plus_z is not None else is_plus_z(params.easy_axis)
 
-    dt, n = clamped_substep_counts(span, config)
     c = coefficients(current, params)
     per_env = {
         "h_k": c.h_k, "ms": c.ms, "neg_gamma_eff": c.neg_gamma_eff,
@@ -278,22 +383,20 @@ def integrate_pulse_cuda(
         t = per_env.get(name)
         return None if t is None else t.data_ptr()
 
-    lib = _build.load_library().lib
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.spintorque_pulse_integrate(
-            mx0.data_ptr(), my0.data_ptr(), mz0.data_ptr(), n.data_ptr(), dt.data_ptr(),
-            ptr("sigma"), ptr("h_k"), ptr("ms"), ptr("neg_gamma_eff"), ptr("alpha"), ptr("stt"),
-            ptr("ex"), ptr("ey"), ptr("ez"), perm.data_ptr(),
-            mx.data_ptr(), my.data_ptr(), mz.data_ptr(), failed.data_ptr(),
-            batch, _METHODS[config.method], int(config.thermal),
-            int(noise_draws(config) == 3), int(plus_z), int(config.bf16_rhs), seed_lo, seed_hi,
-            env_offset, PULSE_BLOCK, stream,
-        )
-        if sharded:
-            PULSE_SHARDED_LAUNCHES.count += 1
-        else:
-            (PULSE_BF16_LAUNCHES if config.bf16_rhs else PULSE_LAUNCHES).count += 1
+    rc = _build.launch(
+        _build.kernel_fn("spintorque_pulse_integrate"), device,
+        mx0.data_ptr(), my0.data_ptr(), mz0.data_ptr(), n.data_ptr(), dt.data_ptr(),
+        ptr("sigma"), ptr("h_k"), ptr("ms"), ptr("neg_gamma_eff"), ptr("alpha"), ptr("stt"),
+        ptr("ex"), ptr("ey"), ptr("ez"), perm.data_ptr(),
+        mx.data_ptr(), my.data_ptr(), mz.data_ptr(), failed.data_ptr(),
+        batch, _METHODS[config.method], int(config.thermal),
+        int(noise_draws(config) == 3), int(plus_z), int(config.bf16_rhs), seed_lo, seed_hi,
+        env_offset,
+    )
     if rc != 0:
         raise RuntimeError(f"pulse kernel launch failed: cudaError {rc}")
+    if sharded:
+        PULSE_SHARDED_LAUNCHES.count += 1
+    else:
+        (PULSE_BF16_LAUNCHES if config.bf16_rhs else PULSE_LAUNCHES).count += 1
     return PulseResult(m=(mx, my, mz), n_substeps=n, dt=dt, failed=failed)

@@ -107,15 +107,12 @@ def op_chain(x: Tensor, op: str, steps: int, block: int = LATENCY_THREADS) -> Te
         raise ValueError("op_chain takes a nonempty contiguous float32 tensor")
     if op not in _OP_INDEX:
         raise ValueError(f"unknown op {op!r}; one of {list(OPS)}")
-    lib = _build.load_library().lib
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.spintorque_op_chain(x.data_ptr(), y.data_ptr(), x.numel(), _OP_INDEX[op],
-                                     steps, block, stream)
-        OP_CHAIN_LAUNCHES.count += 1
+    rc = _build.launch(_build.kernel_fn("spintorque_op_chain"), x.device, x.data_ptr(),
+                       y.data_ptr(), x.numel(), _OP_INDEX[op], steps, block)
     if rc != 0:
         raise RuntimeError(f"op chain kernel launch failed: cudaError {rc}")
+    OP_CHAIN_LAUNCHES.count += 1
     return y
 
 

@@ -93,6 +93,59 @@ def test_kernel_matches_plain_thermal(cuda, cfg):
                   integrate_pulse_plain(m0, spans, cur, p, cfg, seed=77), tol=1e-5)
 
 
+def _bitwise(got, m, n, failed):
+    assert all(torch.equal(x, y) for x, y in zip(got.m, m))
+    assert torch.equal(got.n_substeps, n)
+    assert torch.equal(got.failed, failed)
+
+
+@pytest.mark.parametrize(
+    "case", ["batch_100", "n_0_1_max_in_a_warp", "every_n_0", "chunk_plus_one", "k5_offset"])
+@pytest.mark.parametrize("noise", ["per_substep", "per_stage"])
+def test_thermal_ring_ragged_cases_bitwise(cuda, noise, case):
+    """The producer warps' ring at its edges, bit for bit with the plain
+    version: a batch that is no multiple of 32; n = 0 and n = 1 in the warp
+    of n = 300 (counts the dt law cannot give, so ``launch_pulse`` takes them
+    and the reference is the plain version per group of rows, each env's
+    draws and integration being its own); every n = 0; n one past a multiple
+    of the ring's chunk; a K5 shard at a nonzero env_offset."""
+    cfg = IntegratorConfig(method="rk4", max_substeps=512, thermal=True, rk4_noise=noise)
+    p = _params(cuda)
+    if case == "batch_100":
+        m0, spans, cur = _setup(100, cuda, seed=8)
+        want = integrate_pulse_plain(m0, spans, cur, p, cfg, seed=5)
+        _bitwise(integrate_pulse(m0, spans, cur, p, cfg, seed=5), *want[:2], want.failed)
+    elif case == "n_0_1_max_in_a_warp":
+        m0, _, cur = _setup(32, cuda, seed=8)
+        spans = torch.linspace(3e-10, 4e-10, 32, device=cuda)
+        groups = ((0, 30, 300), (30, 31, 1), (31, 32, 0))
+        n = torch.tensor([c for lo, hi, c in groups for _ in range(lo, hi)], dtype=torch.int32,
+                         device=cuda)
+        got = ci.launch_pulse(m0, spans / n.float(), n, cur, p, cfg, seed=5)
+        parts = [integrate_pulse_plain(tuple(x[lo:hi] for x in m0), spans[lo:hi], cur[lo:hi], p,
+                                       cfg._replace(max_substeps=cap), seed=5, env_offset=lo)
+                 for lo, hi, cap in groups]
+        _bitwise(got, [torch.cat([r.m[k] for r in parts]) for k in range(3)],
+                 torch.cat([r.n_substeps for r in parts]), torch.cat([r.failed for r in parts]))
+    elif case == "every_n_0":
+        m0, spans, cur = _setup(64, cuda, seed=8)
+        zero = torch.zeros(64, dtype=torch.int32, device=cuda)
+        got = ci.launch_pulse(m0, spans / zero.float(), zero, cur, p, cfg, seed=5)
+        _bitwise(got, m0, zero, torch.zeros(64, dtype=torch.bool, device=cuda))
+    elif case == "chunk_plus_one":
+        m0, _, cur = _setup(96, cuda, seed=8)
+        n_odd = ci.PULSE_CHUNK * 13 + 1
+        spans = torch.full((96,), (n_odd + 0.5) * 1e-12, device=cuda)
+        want = integrate_pulse_plain(m0, spans, cur, p, cfg, seed=5)
+        assert int(want.n_substeps.min()) == int(want.n_substeps.max()) == n_odd
+        _bitwise(integrate_pulse(m0, spans, cur, p, cfg, seed=5), *want[:2], want.failed)
+    else:
+        m0, spans, cur = _setup(256, cuda, seed=8)
+        want = integrate_pulse_plain(m0, spans, cur, p, cfg, seed=5, env_offset=4096)
+        got = ci.integrate_pulse_cuda(m0, spans, cur, p, cfg, seed=5, env_offset=4096)
+        _bitwise(got, *want[:2], want.failed)
+
+
 @pytest.mark.parametrize("axis", [(0.0, 0.0, 1.0), (0.6, 0.0, 0.8)], ids=["plus_z", "tilted"])
 @pytest.mark.parametrize("method", ["euler", "heun", "rk4"])
 def test_bf16_kernel_matches_plain(cuda, method, axis):
