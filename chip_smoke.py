@@ -13,9 +13,16 @@ learning gate, the data-parallel path (K5: the main config cut into four
 shards in one process; two gloo ranks sharing the card for an env block
 and a train step, held bit for bit to one process; one NCCL rank through
 the same calls), the switching and Neel-Brown sweeps at full width, and
-the op-chain micro-benchmark (K7). Each path's launch counts are set to 0
-just before it and read just after. Any failed check raises and exits
-non-zero.
+the op-chain micro-benchmark (K7), the device factory and its analytics,
+and the functional env of each Gymnasium id with the configuration its
+adapter builds: SpinTorque-v0 at B=1 for a 100-step episode (K1 once a
+step), its VectorSpinTorqueEnv configuration at B=4096 with the adapter's
+numpy round trip, the crossbar array env (4 x 4 sequential and
+simultaneous, 16 x 16 simultaneous) and the skyrmion racetrack at B=4096.
+The adapters themselves need gymnasium, which the card's machine may lack,
+and are tested on the CPU (tests/test_torch_gym.py). Each path's launch
+counts are set to 0 just before it and read just after. Any failed check
+raises and exits non-zero.
 
 Beside the kernels' checks it holds the pulse kernel's design: ptxas's
 report shows no spill in any pulse_kernel instance; div6, the kernel's
@@ -59,11 +66,31 @@ Tolerances:
     and a copy would agree); there a copy, a step more or fewer, or another
     op differs by more than 1e-3.
 
+  * the device factory and its analytics, card vs CPU float32 on the same
+    (4096, 3) inputs: rtol 1e-6, with an atol of 1e-6 times the largest
+    finite |value| of the output (its float32 rounding, for the outputs
+    that cancel: sums of opposite terms). The Arrhenius switching times
+    exp(x) / 1 GHz are compared by their exponent x = ln(t / 1 ns), at
+    rtol = atol = 1e-6: in t itself a float32 exponent of up to ~88
+    multiplies the rounding of its argument (7.7e-6 relative seen on the
+    card). The VCMA switching probability 1 - exp(-r t) takes atol 1e-5
+    for the same reason (its rate r is such an exponential);
+  * the functional envs of the Gymnasium ids, card vs CPU from the same
+    state and actions, float32, thermal off: SpinTorque-v0 10 steps at
+    1e-4 on obs and reward (as the one-step check); the array env one step
+    at atol 1e-5 on the pattern and the array observation, rtol = atol =
+    1e-5 on the reward; the racetrack one step at atol 1e-5 on positions
+    over the track length, rtol 1e-5 on the reward and on velocities (atol
+    1e-5 times the largest: at the action ranges' currents they are ~1e9
+    m/s).
+
 Bounds (``bound_ms``): the larger of the bytes a call must move over 3.35
 TB/s and its operations over 67 TFLOP/s (the H100 SXM's HBM rate and
-float32 rate outside the tensor cores), from this run's inputs: a pulse
+float32 FMA rate outside the tensor cores), from this run's inputs: a pulse
 call's operations are its envs' substeps times the per-substep count of
-``ops.cuda_integrator.pulse_ops_per_substep``.
+``ops.cuda_integrator.pulse_ops_per_substep``. K7's operations are a plain
+FADD and FMUL a step, priced at the float32 instruction rate, 33.5 T/s
+(132 SMs x 128 lanes x 1.98 GHz, half the FMA flop rate).
 """
 
 import dataclasses
@@ -78,7 +105,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 RECORD = {}
-PEAK_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores
+PEAK_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores (an FMA is two flops)
+# Float32 instructions other than FMAs (FADD, FMUL) issue one per lane per
+# clock: 132 SMs x 128 lanes x 1.98 GHz, half the FMA flop rate.
+PEAK_FP32_INSTR = PEAK_FLOPS / 2
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
 
@@ -95,10 +125,10 @@ def nvidia_smi_line():
     return out.splitlines()[0]
 
 
-def bound(ops, nbytes):
-    """(bound_ms, bound_by): the least time for ``ops`` operations and
-    ``nbytes`` bytes at the card's peaks."""
-    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(ops, nbytes, peak_ops=PEAK_FLOPS):
+    """(bound_ms, bound_by): the least time for ``ops`` operations at
+    ``peak_ops`` per second and ``nbytes`` bytes at the card's peaks."""
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -189,6 +219,346 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def card_vs_cpu(make_env, to_numpy, from_numpy, actions, seed):
+    """Steps ``make_env("cuda")`` and ``make_env("cpu")`` from the card env's
+    reset state (carried to each side by ``to_numpy`` / ``from_numpy``)
+    through the same host ``actions``. Returns, per side, the list of
+    (state, TimeStep) after each step, read back to numpy."""
+    from spintorque_tpu_torch.utils.host import to_host
+
+    env_card, env_cpu = make_env("cuda"), make_env("cpu")
+    snapshot = to_numpy(env_card.reset(seed)[0])
+    sides = []
+    for env in (env_card, env_cpu):
+        state = from_numpy(snapshot, device=env.device)
+        steps = []
+        for a in actions:
+            state, ts = env.step(state, a.to(env.device))
+            steps.append((to_numpy(state), to_host(ts)))
+        sides.append(steps)
+    return sides
+
+
+def max_diff(a, b):
+    import numpy as np
+
+    return float(np.max(np.abs(np.asarray(a, float) - np.asarray(b, float))))
+
+
+def kernels_per_call(fn):
+    """(CUDA kernels and copies, their device ms) of one call of ``fn``, by
+    the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in p.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sum(e.count for e in ops), sum(e.self_device_time_total for e in ops) / 1e3
+
+
+def device_factory_phase(dev, smi):
+    """Every device type of the factory on ``dev`` against the CPU, float32:
+    the Device methods and the SOT / VCMA / skyrmion analytics on a batch of
+    4096."""
+    import numpy as np
+    import torch
+
+    from spintorque_tpu_torch import devices as D
+
+    B = 4096
+    g = torch.Generator().manual_seed(41)
+    m = torch.randn(B, 3, generator=g, dtype=torch.float64)
+    inputs = dict(
+        m=m / m.norm(dim=-1, keepdim=True),
+        h=1e5 * torch.randn(B, 3, generator=g, dtype=torch.float64),
+        j=5e7 * (2 * torch.rand(B, generator=g, dtype=torch.float64) - 1),
+        dur=1e-12 + 5e-9 * torch.rand(B, generator=g, dtype=torch.float64),
+        # |V| from 1e-12 to 2.5 V, log-spread: every branch of the VCMA laws
+        v=torch.sign(torch.randn(B, generator=g, dtype=torch.float64))
+        * 2.5 * 10 ** (-12 * torch.rand(B, generator=g, dtype=torch.float64)),
+        j2=1e11 * torch.randn(B, 2, generator=g, dtype=torch.float64),
+        y=200e-9 * torch.rand(B, generator=g, dtype=torch.float64),
+    )
+
+    def outputs(device_type, device):
+        d = D.create_device(device_type, device=device)
+        x = {k: v.float().to(device) for k, v in inputs.items()}
+        m, p = x["m"], d.params
+        mx, my, mz = m.unbind(-1)
+        out = dict(
+            resistance=d.compute_resistance(m),
+            effective_field=d.compute_effective_field(m, x["h"]),
+            power=d.compute_power_consumption(x["j"], x["dur"], m),
+            energy_barrier=D.energy_barrier(device_type, mx, my, mz, p, voltage=x["v"]),
+            vcma_effective_anisotropy=D.vcma_effective_anisotropy(x["v"], p),
+            vcma_pulse_energy=D.vcma_pulse_energy(x["v"], x["dur"], p),
+            vcma_leakage_current=D.vcma_leakage_current(x["v"], p),
+            vcma_switching_time=D.vcma_switching_time(x["v"], p),
+            vcma_switching_probability=D.vcma_switching_probability(x["v"], x["dur"], p),
+            sot_spin_torques=torch.stack([c for pair in D.sot_spin_torques(x["j"], mx, my, mz, p)
+                                          for c in pair]),
+            sot_switching_time=D.sot_switching_time(x["j"], p),
+            skyrmion_velocity=D.skyrmion_velocity(p, x["j2"]),
+            skyrmion_stability=D.skyrmion_stability(p, x["y"]),
+            skyrmion_resistance=D.skyrmion_resistance(p, torch.arange(B, device=device) % 5),
+            exchange_length=D.exchange_length(p),
+            skyrmion_energy=D.skyrmion_energy(p),
+            skyrmion_hall_angle=D.skyrmion_hall_angle(p),
+            sot_switching_threshold=D.sot_switching_threshold(p),
+        )
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        for k in ("vcma_switching_time", "sot_switching_time"):
+            # Arrhenius times by their exponent, ln(t / 1 ns).
+            with np.errstate(divide="ignore"):
+                out[k] = np.log(out[k].astype(float) * 1e9)
+        return out, d.get_switching_threshold()
+
+    worst = {}
+    for device_type in D.DEVICE_TYPES:
+        got, got_threshold = outputs(device_type, dev)
+        want, want_threshold = outputs(device_type, "cpu")
+        check(got_threshold.keys() == want_threshold.keys(), f"{device_type} thresholds")
+        for k in want_threshold:
+            check(abs(got_threshold[k] - want_threshold[k]) <= 1e-6 * abs(want_threshold[k]),
+                  f"{device_type} switching threshold {k}: {got_threshold} vs {want_threshold}")
+        for name, ref in want.items():
+            finite = np.isfinite(ref)
+            scale = float(np.abs(ref[finite]).max()) if finite.any() else 0.0
+            atol = {"vcma_switching_time": 1e-6, "sot_switching_time": 1e-6,
+                    "vcma_switching_probability": 1e-5}.get(name, 1e-6 * scale)
+            np.testing.assert_allclose(got[name], ref, rtol=1e-6, atol=atol,
+                                       err_msg=f"{device_type} {name}: card vs CPU")
+            ref_f = ref[finite].astype(float)
+            err = np.abs(got[name][finite] - ref_f) / np.maximum(np.abs(ref_f), 1e-300)
+            worst[name] = max(worst.get(name, 0.0), float(err.max()) if err.size else 0.0)
+    print(f"device factory on the card: {len(D.DEVICE_TYPES)} types x {len(worst)} outputs on "
+          f"B={B}, card vs CPU float32 within the stated tolerances; worst relative "
+          f"{max(worst, key=worst.get)} {max(worst.values()):.2e}  [{smi}]")
+    return dict(worst_relative=worst)
+
+
+def gym_id_phases(dev, smi, main_rate):
+    """The functional env of each registered id, with the configuration its
+    adapter builds (``tests/test_torch_gym.py`` holds the adapters to these
+    configurations), on ``dev``. ``main_rate`` is the main path's env-steps/s
+    at B=4096 without the host round trip."""
+    import numpy as np
+    import torch
+
+    from spintorque_tpu_torch import convert
+    from spintorque_tpu_torch.envs import (
+        ArrayEnvConfig,
+        SkyrmionEnvConfig,
+        SkyrmionRacetrackEnv,
+        SpinTorqueArrayEnv,
+        SpinTorqueEnv,
+        SpinTorqueEnvConfig,
+    )
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+    from spintorque_tpu_torch.utils.host import next_seed, to_host
+
+    out = {}
+    rng = np.random.default_rng(17)
+    B = 4096
+
+    # SpinTorque-v0 at B=1, as a Gymnasium loop drives its adapter: 100
+    # steps (the id's max_episode_steps) of random actions, each with the
+    # adapter's host read, and a reset from a fresh seed of the adapter's
+    # seed sequence whenever an episode terminates or is truncated.
+    cfg = SpinTorqueEnvConfig(autoreset=False)
+    actions = np.stack([rng.uniform(-cfg.max_current, cfg.max_current, 100),
+                        rng.uniform(0.0, cfg.max_duration, 100)], -1).astype(np.float32)
+    seeds = np.random.SeedSequence(5)
+    ci.PULSE_LAUNCHES.reset()
+    ci.PROBE_LAUNCHES.reset()
+    env = SpinTorqueEnv(batch_size=1, config=cfg, device=dev)
+
+    def reset():
+        t0 = time.perf_counter()
+        state, obs = env.reset(next_seed(seeds))
+        check(np.isfinite(to_host(obs)).all(), "SpinTorque-v0 reset")
+        reset_ms.append((time.perf_counter() - t0) * 1e3)
+        return state
+
+    step_ms, reset_ms, episode_steps = [], [], [0]
+    state = reset()
+    for a in actions:
+        t0 = time.perf_counter()
+        state, ts = env.step(state, a[None])
+        host = to_host(ts)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(np.isfinite(host.obs).all(), "SpinTorque-v0: non-finite observation")
+        episode_steps[-1] += 1
+        if host.terminated[0] or host.truncated[0]:
+            check(episode_steps[-1] <= cfg.max_steps, "SpinTorque-v0 ran past max_steps")
+            state = reset()
+            episode_steps.append(0)
+    launches = (ci.PULSE_LAUNCHES.count, ci.PROBE_LAUNCHES.count)
+    check(launches[0] == 100 and launches[1] <= 1,
+          f"SpinTorque-v0 episodes launched K1 / K2 {launches}, want 100 / <= 1")
+    episodes = [n for n in episode_steps if n]
+    first_done = episode_steps[0] if len(episode_steps) > 1 else None
+    card, cpu = card_vs_cpu(
+        lambda d: SpinTorqueEnv(batch_size=1, config=cfg._replace(include_thermal=False),
+                                device=d),
+        convert.env_state_to_numpy, convert.env_state_from_numpy,
+        [torch.from_numpy(a[None]) for a in actions[:10]], seed=6)
+    obs_diff = max(max_diff(a[1].obs, b[1].obs) for a, b in zip(card, cpu))
+    rew_diff = max(max_diff(a[1].reward, b[1].reward) for a, b in zip(card, cpu))
+    check(obs_diff < 1e-4 and rew_diff < 1e-4, "SpinTorque-v0: card and CPU steps disagree")
+    median_ms, p90_ms = (float(x) for x in np.percentile(step_ms, [50, 90]))
+    reset_median_ms = float(np.median(reset_ms))
+    n_kernels, busy_ms = kernels_per_call(lambda: to_host(env.step(state, actions[0][None])[1]))
+    out["spin_torque_v0"] = dict(median_ms=median_ms, p90_ms=p90_ms, launches=launches,
+                                 resets=len(reset_ms), reset_median_ms=reset_median_ms,
+                                 episode_lengths=episodes, first_done_step=first_done,
+                                 card_vs_cpu=(obs_diff, rew_diff),
+                                 kernels_per_step=n_kernels, device_ms_per_step=busy_ms)
+    print(f"SpinTorque-v0 (B=1, thermal, RK4): 100 steps in {len(episodes)} episodes (first "
+          f"done at step {first_done}; {len(reset_ms)} resets, {reset_median_ms:.3f} ms median "
+          f"each), K1 launched {launches[0]} times, K2 {launches[1]}; {median_ms:.3f} ms "
+          f"median, {p90_ms:.3f} ms p90 per step with the host read; one profiled step: "
+          f"{n_kernels} kernels and copies, {busy_ms:.3f} ms on the device; 10 steps thermal "
+          f"off card vs CPU: obs {obs_diff:.2e}, reward {rew_diff:.2e}  [{smi}]")
+
+    # VectorSpinTorqueEnv's configuration at its default width, with the
+    # adapter's numpy round trip each step: actions in from numpy, every
+    # output (obs, reward, flags, info) out to numpy in one wait.
+    env = SpinTorqueEnv(batch_size=B, config=SpinTorqueEnvConfig(), device=dev)
+    state, _ = env.reset(seed=7)
+    blocks = []
+    for _ in range(3):  # a warmup block, then two
+        acts = np.stack([rng.uniform(-2e6, 2e6, (16, B)), rng.uniform(0.0, 5e-9, (16, B))],
+                        -1).astype(np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in acts:
+            state, ts = env.step(state, a)
+            host = to_host(ts)
+        blocks.append(16 * B / (time.perf_counter() - t0))
+        check(np.isfinite(host.obs).all(), "non-finite vector-adapter observations")
+    n_kernels, busy_ms = kernels_per_call(lambda: to_host(env.step(state, acts[0])[1]))
+    out["vector_round_trip"] = dict(env_steps_per_s=blocks[1:], kernels_per_step=n_kernels,
+                                    device_ms_per_step=busy_ms)
+    print(f"VectorSpinTorqueEnv config B={B}, 16 steps with the numpy round trip: "
+          f"{[round(r) for r in blocks[1:]]} env-steps/s (without it, the main path: "
+          f"{main_rate:.0f}); one profiled step: {n_kernels} kernels and copies, "
+          f"{busy_ms:.3f} ms on the device  [{smi}]")
+
+    # SpinTorqueArray-v0: 4 x 4, dipolar, individual actions, B=4096.
+    def array_actions(cfg, n_steps):
+        idx = rng.integers(0, cfg.n_devices, (n_steps, B))
+        cur = rng.uniform(-cfg.max_current, cfg.max_current, (n_steps, B))
+        cur[rng.random((n_steps, B)) < 0.2] = 0.0
+        dur = rng.uniform(1e-12, cfg.max_duration, (n_steps, B))
+        return torch.from_numpy(np.stack([idx, cur, dur], -1).astype(np.float32))
+
+    array_cfg = ArrayEnvConfig(autoreset=False)
+    out["array"] = {}
+    for label, cfg in (("4x4 sequential", array_cfg),
+                       ("4x4 simultaneous", array_cfg._replace(coupling_update="simultaneous")),
+                       ("16x16 simultaneous", array_cfg._replace(
+                           rows=16, cols=16, coupling_update="simultaneous"))):
+        env = SpinTorqueArrayEnv(batch_size=B, config=cfg, device=dev)
+        acts = array_actions(cfg, 16).to(dev)
+        state, _ = env.reset(seed=8)
+        env.step(state, acts[0])  # warmup
+        states = [state]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in acts:
+            states.append(env.step(states[-1], a)[0])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 16
+        # After the clock: devices not selected, or driven by |J| <= 1e-12,
+        # kept their bits.
+        kept = True
+        for a, old, new in zip(acts, states, states[1:]):
+            moved = (torch.arange(cfg.n_devices, device=dev)[None, :] == a[:, :1].long()) \
+                & (a[:, 1:2].abs() > 1e-12)
+            kept &= bool(torch.equal(new.pattern[~moved], old.pattern[~moved]))
+        state = states[-1]
+        del states
+        norm_err = float((torch.linalg.vector_norm(state.pattern, dim=-1) - 1).abs().max())
+        check(kept, f"array {label}: an undriven device moved")
+        check(norm_err < 1e-5, f"array {label}: |m| off 1 by {norm_err}")
+        card, cpu = card_vs_cpu(
+            lambda d, cfg=cfg: SpinTorqueArrayEnv(batch_size=B, config=cfg, device=d),
+            convert.array_state_to_numpy, convert.array_state_from_numpy,
+            [array_actions(cfg, 1)[0]], seed=9)
+        (s_card, t_card), (s_cpu, t_cpu) = card[0], cpu[0]
+        pattern_diff = max_diff(s_card["pattern"], s_cpu["pattern"])
+        obs_diff = max_diff(t_card.obs, t_cpu.obs)
+        check(pattern_diff < 1e-5 and obs_diff < 1e-5, f"array {label}: card vs CPU "
+              f"pattern {pattern_diff}, obs {obs_diff}")
+        np.testing.assert_allclose(t_card.reward, t_cpu.reward, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"array {label}: card vs CPU reward")
+        n_kernels, busy_ms = kernels_per_call(lambda: env.step(state, acts[0]))
+        out["array"][label] = dict(ms_per_step=ms, norm_err=norm_err, pattern_diff=pattern_diff,
+                                   obs_diff=obs_diff, kernels_per_step=n_kernels,
+                                   device_ms_per_step=busy_ms)
+        print(f"SpinTorqueArray-v0 {label} B={B}: {ms:.2f} ms/step (16 steps); one profiled "
+              f"step: {n_kernels} kernels and copies, {busy_ms:.3f} ms on the device; |m| - 1 "
+              f"{norm_err:.1e}; undriven devices bit for bit; one step card vs CPU: pattern "
+              f"{pattern_diff:.1e}, obs {obs_diff:.1e}  [{smi}]")
+
+    # SkyrmionRacetrack-v0: 1 skyrmion, pinning and thermal on, B=4096, one
+    # 150-step episode.
+    cfg = SkyrmionEnvConfig(autoreset=False)
+
+    def racetrack_actions(n_steps):
+        a = np.concatenate([rng.uniform(-cfg.max_current, cfg.max_current, (n_steps, B, 2)),
+                            rng.uniform(-cfg.max_gradient, cfg.max_gradient, (n_steps, B, 2)),
+                            rng.uniform(0.0, 2e-9, (n_steps, B, 1))], -1)
+        return torch.from_numpy(a.astype(np.float32))
+
+    env = SkyrmionRacetrackEnv(batch_size=B, config=cfg, device=dev)
+    acts = racetrack_actions(cfg.max_steps).to(dev)
+    state, _ = env.reset(seed=10)
+    lo = torch.tensor([cfg.skyrmion_radius] * 2, device=dev)
+    hi = torch.tensor([cfg.track_length - cfg.skyrmion_radius,
+                       cfg.track_width - cfg.skyrmion_radius], device=dev)
+    inside = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in acts:
+        state, ts = env.step(state, a)
+        inside &= ((state.positions >= lo) & (state.positions <= hi)).all()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / cfg.max_steps
+    check(bool(inside), "a skyrmion left the track")
+    check(bool(ts.truncated.all()) and bool(torch.isfinite(ts.obs).all()), "racetrack episode")
+    card, cpu = card_vs_cpu(
+        lambda d: SkyrmionRacetrackEnv(batch_size=B, config=cfg._replace(include_thermal=False),
+                                       device=d),
+        convert.skyrmion_state_to_numpy, convert.skyrmion_state_from_numpy,
+        [racetrack_actions(1)[0]], seed=11)
+    (s_card, t_card), (s_cpu, t_cpu) = card[0], cpu[0]
+    # At the action ranges' currents the skyrmions move at ~1e9 m/s and
+    # stop at the walls: positions over the track length at atol 1e-5,
+    # velocities relative to their largest.
+    pos_diff = max_diff(s_card["positions"], s_cpu["positions"]) / cfg.track_length
+    vel_scale = float(np.abs(s_cpu["velocities"]).max())
+    np.testing.assert_allclose(s_card["velocities"], s_cpu["velocities"], rtol=1e-5,
+                               atol=1e-5 * vel_scale, err_msg="racetrack: card vs CPU velocities")
+    check(pos_diff < 1e-5, f"racetrack: card vs CPU positions / L {pos_diff}")
+    np.testing.assert_allclose(t_card.reward, t_cpu.reward, rtol=1e-5,
+                               err_msg="racetrack: card vs CPU reward")
+    n_kernels, busy_ms = kernels_per_call(lambda: env.step(state, acts[0]))
+    out["skyrmion"] = dict(ms_per_step=ms, positions_over_length_diff=pos_diff,
+                           kernels_per_step=n_kernels, device_ms_per_step=busy_ms)
+    print(f"SkyrmionRacetrack-v0 B={B}, pinning and thermal on: 150 steps, {ms:.2f} ms/step; "
+          f"one profiled step: {n_kernels} kernels and copies, {busy_ms:.3f} ms on the device; "
+          f"every skyrmion inside the walls; one step thermal off card vs CPU: positions / L "
+          f"{pos_diff:.1e}, velocities (scale {vel_scale:.2e} m/s) within rtol 1e-5  [{smi}]")
+    return out
 
 
 def main():
@@ -726,16 +1096,12 @@ def main():
     # different streams.
     cfg = SpinTorqueEnvConfig(include_thermal=False, autoreset=False)
     B = 1024
-    env_gpu = SpinTorqueEnv(batch_size=B, config=cfg, device="cuda")
-    env_cpu = SpinTorqueEnv(batch_size=B, config=cfg, device="cpu")
-    state, _ = env_gpu.reset(seed=21)
-    snapshot = convert.env_state_to_numpy(state)
     action = torch.stack([2e6 * (2 * torch.rand(B, generator=gen) - 1),
                           1e-12 + 5e-9 * torch.rand(B, generator=gen)], -1)
-    _, ts_gpu = env_gpu.step(convert.env_state_from_numpy(snapshot, device="cuda"), action.to(dev))
-    _, ts_cpu = env_cpu.step(convert.env_state_from_numpy(snapshot, device="cpu"), action)
-    obs_diff = (ts_gpu.obs.cpu() - ts_cpu.obs).abs().max().item()
-    rew_diff = (ts_gpu.reward.cpu() - ts_cpu.reward).abs().max().item()
+    (card,), (cpu,) = card_vs_cpu(lambda d: SpinTorqueEnv(batch_size=B, config=cfg, device=d),
+                                  convert.env_state_to_numpy, convert.env_state_from_numpy,
+                                  [action], seed=21)
+    obs_diff, rew_diff = max_diff(card[1].obs, cpu[1].obs), max_diff(card[1].reward, cpu[1].reward)
     print(f"one step card vs CPU plain path (B={B}, f32, thermal off): "
           f"obs max diff {obs_diff:.3e}, reward max diff {rew_diff:.3e}")
     check(obs_diff < 1e-4 and rew_diff < 1e-4, "card and CPU steps disagree")
@@ -963,7 +1329,9 @@ def main():
     xk = torch.ones(sms * 2048, dtype=torch.float32, device=dev)
     k7_ms = cuda_ms(lambda: oc.op_chain(xk, "base2", 20_000, 256), 5)
     k7_plain_ms = cuda_ms(lambda: oc.op_chain_plain(xk, "base2", 20_000), 1)
-    k7_bound = bound(xk.numel() * 20_000 * 2, 2 * 4 * xk.numel())
+    # base2 is a plain FADD and a plain FMUL a step (--fmad=false): priced at
+    # the float32 instruction rate, not the FMA flop rate.
+    k7_bound = bound(xk.numel() * 20_000 * 2, 2 * 4 * xk.numel(), PEAK_FP32_INSTR)
     for shape, key in (("latency, 1 block of 1024", "latency_ns"),
                        ("throughput, per 1024 lanes", "throughput_ns_per_1024")):
         print(f"K7 ns/op ({shape}): "
@@ -1000,6 +1368,10 @@ def main():
         print(f"{name} chain floor (max n {int(n.max())}): {floors[name]:.3f} ms = depth {d} "
               f"at {ns:.1f} ns a substep; kernel {ms:.3f} ms, {ms / floors[name]:.2f}x  [{smi}]")
     RECORD["chain_floor_ms"] = floors
+
+    # ----------- 14. the device factory, and the envs of the Gymnasium ids
+    RECORD["device_factory"] = device_factory_phase(dev, smi)
+    RECORD["gym_ids"] = gym_id_phases(dev, smi, rates[len(rates) // 2])
 
     pulse = "spintorque_tpu_torch/csrc/pulse_integrator.cu"
     kernels = [

@@ -5,12 +5,14 @@ The JAX side is seen only as numpy dicts of its dataclass fields (flax
 
   * ``LLGSParams`` / ``DeviceParams`` fields -> the port's dataclasses;
   * ``EnvState`` leaves (m, target, step, total_energy, last_current,
-    last_duration, episode_return, key, reward_stats) -> the port's EnvState;
+    last_duration, episode_return, key, reward_stats) -> the port's EnvState,
+    and likewise the array env's ``ArrayEnvState`` (pattern, target, ...)
+    and the skyrmion env's ``SkyrmionEnvState`` (positions, velocities, ...);
   * the flax ``ActorCritic`` parameter tree -> ``rl.ActorCritic`` and back.
 
 A JAX PRNG key (two uint32 words) maps to the port's 64-bit seed as
-(key[0] << 32) | key[1], and back; the port's reset generator is seeded with
-it and its host step counter starts at 0.
+(key[0] << 32) | key[1], and back; the port's generator is seeded with it
+and SpinTorqueEnv's host step counter starts at 0.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 from .devices.params import DeviceParams
+from .envs.array import ArrayEnvState
+from .envs.skyrmion import SkyrmionEnvState
 from .envs.spin_torque import EnvState
 from .physics.llgs import LLGSParams
 from .rewards.composite import RunningStat
@@ -31,6 +35,8 @@ _LLGS_FIELDS = [f.name for f in dataclasses.fields(LLGSParams) if f.name != "plu
 _STATE_TENSORS = (
     "m", "target", "step", "total_energy", "last_current", "last_duration", "episode_return",
 )
+_ARRAY_STATE_TENSORS = ("pattern", "target", "step", "total_energy", "episode_return")
+_SKYRMION_STATE_TENSORS = ("positions", "velocities", "step", "total_energy", "episode_return")
 
 
 def _tensor(x, device, dtype=None):
@@ -67,28 +73,25 @@ def key_from_seed(seed: int) -> np.ndarray:
     return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], dtype=np.uint32)
 
 
-def env_state_from_numpy(d: Dict[str, Any], *, device, dtype=None) -> EnvState:
-    """EnvState from the JAX EnvState's leaves as numpy arrays.
-
+def _state_fields(d: Dict[str, Any], names, device, dtype) -> Dict[str, Any]:
+    """The tensor leaves ``names``, the seed, the generator seeded with it
+    and the reward statistics of a state, from a JAX state's numpy leaves.
     ``dtype`` casts the floating leaves (``step`` stays int32)."""
     device = torch.device(device)
     seed = seed_from_key(d["key"])
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
-    fields = {}
-    for k in _STATE_TENSORS:
-        fields[k] = _tensor(d[k], device, torch.int32 if k == "step" else dtype)
+    fields = {k: _tensor(d[k], device, torch.int32 if k == "step" else dtype) for k in names}
     stats = {
         name: RunningStat(**{k: _tensor(v, device, dtype) for k, v in st.items()})
         for name, st in d.get("reward_stats", {}).items()
     }
-    return EnvState(**fields, seed=seed, counter=0, generator=generator, reward_stats=stats)
+    return dict(fields, seed=seed, generator=generator, reward_stats=stats)
 
 
-def env_state_to_numpy(state: EnvState) -> Dict[str, Any]:
-    """The JAX EnvState's leaves from the port's EnvState (the key carries
-    the seed; the host step counter has no JAX counterpart)."""
-    out = {k: getattr(state, k).detach().cpu().numpy() for k in _STATE_TENSORS}
+def _state_to_numpy(state, names) -> Dict[str, Any]:
+    """A JAX state's leaves from a port state (the key carries the seed)."""
+    out = {k: getattr(state, k).detach().cpu().numpy() for k in names}
     out["key"] = key_from_seed(state.seed)
     out["reward_stats"] = {
         name: {f.name: getattr(st, f.name).detach().cpu().numpy()
@@ -96,6 +99,40 @@ def env_state_to_numpy(state: EnvState) -> Dict[str, Any]:
         for name, st in state.reward_stats.items()
     }
     return out
+
+
+def env_state_from_numpy(d: Dict[str, Any], *, device, dtype=None) -> EnvState:
+    """EnvState from the JAX EnvState's leaves as numpy arrays.
+
+    ``dtype`` casts the floating leaves (``step`` stays int32)."""
+    return EnvState(**_state_fields(d, _STATE_TENSORS, device, dtype), counter=0)
+
+
+def env_state_to_numpy(state: EnvState) -> Dict[str, Any]:
+    """The JAX EnvState's leaves from the port's EnvState (the host step
+    counter has no JAX counterpart)."""
+    return _state_to_numpy(state, _STATE_TENSORS)
+
+
+def array_state_from_numpy(d: Dict[str, Any], *, device, dtype=None) -> ArrayEnvState:
+    """ArrayEnvState from the JAX ArrayEnvState's leaves as numpy arrays."""
+    return ArrayEnvState(**_state_fields(d, _ARRAY_STATE_TENSORS, device, dtype))
+
+
+def array_state_to_numpy(state: ArrayEnvState) -> Dict[str, Any]:
+    """The JAX ArrayEnvState's leaves from the port's ArrayEnvState."""
+    return _state_to_numpy(state, _ARRAY_STATE_TENSORS)
+
+
+def skyrmion_state_from_numpy(d: Dict[str, Any], *, device, dtype=None) -> SkyrmionEnvState:
+    """SkyrmionEnvState from the JAX SkyrmionEnvState's leaves as numpy
+    arrays."""
+    return SkyrmionEnvState(**_state_fields(d, _SKYRMION_STATE_TENSORS, device, dtype))
+
+
+def skyrmion_state_to_numpy(state: SkyrmionEnvState) -> Dict[str, Any]:
+    """The JAX SkyrmionEnvState's leaves from the port's SkyrmionEnvState."""
+    return _state_to_numpy(state, _SKYRMION_STATE_TENSORS)
 
 
 def _actor_critic_layers(module: ActorCritic):
