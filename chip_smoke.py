@@ -20,7 +20,14 @@ step), its VectorSpinTorqueEnv configuration at B=4096 with the adapter's
 numpy round trip, the crossbar array env (4 x 4 sequential and
 simultaneous, 16 x 16 simultaneous) and the skyrmion racetrack at B=4096.
 The adapters themselves need gymnasium, which the card's machine may lack,
-and are tested on the CPU (tests/test_torch_gym.py). Each path's launch
+and are tested on the CPU (tests/test_torch_gym.py). Last, the analysis
+physics (``analysis_phase``): the solver facade LLGSSolver at B=65536 over
+a 5 ns pulse (K1) for euler, heun and rk4, thermal and deterministic, with
+an easy axis taken from a dict; the trajectory at B=4096 over 2 ns; the
+adaptive RK45 (B=4096), implicit midpoint and Radau (B=1024, the stiff
+case); the stable-state search and the energy landscape; the solver
+probes; ConfigManager().make_env(), the env and trainer checkpoint round
+trips and step purity of the three envs on the card. Each path's launch
 counts are set to 0 just before it and read just after. Any failed check
 raises and exits non-zero.
 
@@ -75,6 +82,15 @@ Tolerances:
     multiplies the rounding of its argument (7.7e-6 relative seen on the
     card). The VCMA switching probability 1 - exp(-r t) takes atol 1e-5
     for the same reason (its rate r is such an exponential);
+  * the analysis phase: the solver's K1 results against the plain version
+    on the card over the first 4096 rows of each batch (each env integrates
+    and draws on its own): 2e-6 deterministic, 1e-5 thermal, n and failed
+    identical; the trajectory's last row against the K1 solve at 2e-6; the
+    adaptive methods in float32 on the card against the CPU port in
+    float64 on their first 128 rows, within 10x the rtol; the stable
+    states and the landscape's minima as sets, its effective field at rtol
+    1e-12 (float64 on both); checkpoints and two steps of one state bit for
+    bit;
   * the functional envs of the Gymnasium ids, card vs CPU from the same
     state and actions, float32, thermal off: SpinTorque-v0 10 steps at
     1e-4 on obs and reward (as the one-step check); the array env one step
@@ -85,12 +101,15 @@ Tolerances:
     m/s).
 
 Bounds (``bound_ms``): the larger of the bytes a call must move over 3.35
-TB/s and its operations over 67 TFLOP/s (the H100 SXM's HBM rate and
-float32 FMA rate outside the tensor cores), from this run's inputs: a pulse
-call's operations are its envs' substeps times the per-substep count of
-``ops.cuda_integrator.pulse_ops_per_substep``. K7's operations are a plain
-FADD and FMUL a step, priced at the float32 instruction rate, 33.5 T/s
-(132 SMs x 128 lanes x 1.98 GHz, half the FMA flop rate).
+TB/s (the H100 SXM's HBM rate) and its operations over the float32
+instruction rate outside the tensor cores, 33.5 T/s (132 SMs x 128 lanes x
+1.98 GHz, half the 67 TFLOP/s FMA flop rate), from this run's inputs. Every
+kernel here is built with --fmad=false, so its adds and multiplies issue as
+plain FADDs and FMULs, one instruction an operation: a pulse call's
+operations are its envs' substeps times the per-substep count of
+``ops.cuda_integrator.pulse_ops_per_substep`` (each add, multiply, divide,
+sqrt, log, compare or select one, so a lower bound), the probe's one add an
+element, K7's a plain FADD and FMUL a step.
 """
 
 import dataclasses
@@ -106,8 +125,10 @@ sys.path.insert(0, ROOT)
 
 RECORD = {}
 PEAK_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores (an FMA is two flops)
-# Float32 instructions other than FMAs (FADD, FMUL) issue one per lane per
-# clock: 132 SMs x 128 lanes x 1.98 GHz, half the FMA flop rate.
+# Float32 instructions (FADD, FMUL, FFMA alike) issue one per lane per
+# clock: 132 SMs x 128 lanes x 1.98 GHz, half the FMA flop rate. The
+# kernels are built with --fmad=false, so an add or a multiply is one
+# instruction: the rate every bound below prices operations at.
 PEAK_FP32_INSTR = PEAK_FLOPS / 2
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
@@ -125,10 +146,11 @@ def nvidia_smi_line():
     return out.splitlines()[0]
 
 
-def bound(ops, nbytes, peak_ops=PEAK_FLOPS):
-    """(bound_ms, bound_by): the least time for ``ops`` operations at
-    ``peak_ops`` per second and ``nbytes`` bytes at the card's peaks."""
-    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time for ``ops`` float32 instructions
+    at ``PEAK_FP32_INSTR`` per second and ``nbytes`` bytes at the card's
+    HBM rate."""
+    t_ops, t_bytes = ops / PEAK_FP32_INSTR, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -558,6 +580,249 @@ def gym_id_phases(dev, smi, main_rate):
           f"one profiled step: {n_kernels} kernels and copies, {busy_ms:.3f} ms on the device; "
           f"every skyrmion inside the walls; one step thermal off card vs CPU: positions / L "
           f"{pos_diff:.1e}, velocities (scale {vel_scale:.2e} m/s) within rtol 1e-5  [{smi}]")
+    return out
+
+
+# The analysis phase's device: STT-MRAM-like, its easy axis tilted off +z
+# and taken from a dict, as a user characterizing a device passes it.
+ANALYSIS_DEVICE = dict(volume=1e-23, saturation_magnetization=800e3, damping=0.01,
+                       uniaxial_anisotropy=1.2e6, polarization=0.7, easy_axis=[0.6, 0.0, 0.8])
+# The stiff high-damping case of the JAX package's adaptive tests.
+STIFF_DEVICE = dict(ANALYSIS_DEVICE, damping=0.5, easy_axis=[0.0, 0.0, 1.0])
+
+
+def analysis_phase(dev, smi):
+    """The analysis physics on the card, at the sizes users characterize
+    devices: the solver facade (K1) at B=65536 over a 5 ns pulse for each
+    fixed-step method, thermal and deterministic, held to the plain version
+    on the card; the trajectory at B=4096 over 2 ns against the K1 solve;
+    the adaptive methods in float32 against the CPU port in float64; the
+    stable-state search and the energy landscape; the solver probes; the
+    config, checkpoint round trips and step purity of the three envs. K1's
+    launches are counted from 0 over the solver's path."""
+    import numpy as np
+    import torch
+
+    from spintorque_tpu_torch.config import ConfigManager
+    from spintorque_tpu_torch.envs import (
+        ArrayEnvConfig,
+        SkyrmionEnvConfig,
+        SkyrmionRacetrackEnv,
+        SpinTorqueArrayEnv,
+        SpinTorqueEnv,
+        SpinTorqueEnvConfig,
+    )
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+    from spintorque_tpu_torch.physics import (
+        AdaptiveLLGSSolver,
+        EnergyLandscape,
+        IntegratorConfig,
+        LLGSSolver,
+        find_stable_states,
+        integrate_pulse_plain,
+        normalize_with_fallback,
+        params_from_dict,
+    )
+    from spintorque_tpu_torch.rl import PPOConfig, PPOTrainer
+    from spintorque_tpu_torch.utils import (
+        load_env_state,
+        load_train_state,
+        save_env_state,
+        save_train_state,
+    )
+
+    out = {}
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(31)
+    B = 65536
+    m = torch.randn(B, 3, generator=g).to(dev)  # the solver normalizes
+    # Currents of either sign, log-uniform over 1e-6..1e2 A/m^2: the
+    # larger ones freeze some envs in float32 (the reference's failure).
+    cur = (torch.sign(torch.randn(B, generator=g))
+           * 10.0 ** (8.0 * torch.rand(B, generator=g) - 6.0)).to(dev)
+    counters = (ci.PULSE_LAUNCHES, ci.PULSE_BF16_LAUNCHES, ci.PULSE_SHARDED_LAUNCHES)
+
+    # ---- the solver facade: 6 solves at B=65536 through K1, timed
+    for c in counters:
+        c.reset()
+    solves = {}
+    for method in ("euler", "heun", "rk4"):
+        solver = LLGSSolver(method=method, device=dev)
+        for thermal in (False, True):
+            solves[(method, thermal)] = timed(lambda: solver.solve(
+                m, (0.0, 5e-9), ANALYSIS_DEVICE, current=cur, thermal_noise=thermal, seed=13))
+    # the probes on the card: zero span, zero / NaN magnetization, unknown
+    # method, float64
+    solver = LLGSSolver(method="no-such-method", device=dev)
+    check(solver.method == "euler", "an unknown method did not become euler")
+    triv = solver.solve(torch.tensor([0.0, 0.0, 2.0]), (1e-9, 1e-9), ANALYSIS_DEVICE)
+    fall = solver.solve(torch.tensor([[0.0, 0.0, 0.0], [float("nan"), 1.0, 0.0]]),
+                        (0.0, 1e-10), STIFF_DEVICE)
+    plus_z = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    check(triv["success"] and triv["n_steps"] == 1 and torch.equal(triv["m"], plus_z),
+          f"zero-span probe: {triv}")
+    check(fall["success"] and torch.equal(fall["m"], plus_z.expand(2, 3)),
+          f"zero / NaN magnetization probe: {fall['m']}")
+    launched = counters[0].count
+    try:
+        LLGSSolver(dtype=torch.float64, device=dev).solve(m[:4], (0.0, 1e-10), ANALYSIS_DEVICE)
+        check(False, "a float64 solve on the card did not raise")
+    except ValueError:
+        pass
+    check(counters[0].count == launched, "the float64 solve launched K1")
+    solver_launches = [c.count for c in counters]
+    check(solver_launches == [7, 0, 0],
+          f"the solver path launched K1/K6/K5 {solver_launches} times, want [7, 0, 0]")
+
+    # ...each held to the plain version on the card over its first 4096
+    # rows (each env integrates and draws on its own): 2e-6 deterministic,
+    # 1e-5 thermal, n and failed identical.
+    rows = 4096
+    p = params_from_dict(ANALYSIS_DEVICE, device=dev)
+    m0 = normalize_with_fallback(*m[:rows].unbind(-1))
+    span = torch.full((rows,), 5e-9, device=dev)
+    solve_rows = []
+    for (method, thermal), (res, ms) in solves.items():
+        cfg = IntegratorConfig(method=method, thermal=thermal)  # the solver's defaults
+        want, plain_ms = timed(lambda: integrate_pulse_plain(
+            m0, span, cur[:rows], p, cfg, seed=13 if thermal else None))
+        tol = 1e-5 if thermal else 2e-6
+        got = res["m"][:rows]
+        torch.testing.assert_close(got, torch.stack(want.m, -1), rtol=tol, atol=tol)
+        check(torch.equal(res["n_steps"][:rows], want.n_substeps)
+              and torch.equal(res["failed"][:rows], want.failed),
+              f"solver {method} thermal={thermal}: n or failed differ from the plain version")
+        err = float((got - torch.stack(want.m, -1)).abs().max())
+        frozen = int(res["failed"].sum())
+        solve_rows.append(dict(method=method, thermal=thermal, ms=ms, plain_ms_4096=plain_ms,
+                               max_abs_err=err, failed=frozen))
+        print(f"LLGSSolver {method:5s} {'thermal' if thermal else 'deterministic':13s} "
+              f"B={B} 5 ns, tilted axis from a dict: {ms:.2f} ms (K1, with the host read of "
+              f"success); plain on 4096 rows {plain_ms:.0f} ms, max_abs_err {err:.2e}; "
+              f"{frozen} envs failed  [{smi}]")
+    out["solver"] = dict(solves=solve_rows, launches=solver_launches)
+
+    # ---- the trajectory: B=4096, 2 ns, the defaults (euler, 5120 rows)
+    solver = LLGSSolver(device=dev)
+    mt, ct = m[:4096], cur[:4096]
+    traj, traj_ms = timed(lambda: solver.solve(mt, (0.0, 2e-9), ANALYSIS_DEVICE, current=ct,
+                                               return_trajectory=True))
+    final = solver.solve(mt, (0.0, 2e-9), ANALYSIS_DEVICE, current=ct)
+    check(traj["m"].shape == (4096, 5121, 3), f"trajectory shape {tuple(traj['m'].shape)}")
+    torch.testing.assert_close(traj["m"][:, -1], final["m"], rtol=2e-6, atol=2e-6)
+    check(torch.equal(traj["n_steps"], final["n_steps"]), "trajectory n differs")
+    traj_err = float((traj["m"][:, -1] - final["m"]).abs().max())
+    out["trajectory"] = dict(ms=traj_ms, last_row_vs_k1=traj_err)
+    print(f"trajectory B=4096 2 ns (5121, 3) rows a state: {traj_ms:.0f} ms (the plain loop, "
+          f"2000 substeps); last row vs the K1 solve {traj_err:.2e}  [{smi}]")
+    del traj
+
+    # ---- the adaptive methods: float32 on the card against the CPU port in
+    # float64 on the first rows (each env adapts on its own), within 10x the
+    # rtol; success everywhere.
+    adaptive = []
+    for method, batch, dp, span, cur_a, kw in (
+        ("RK45", 4096, dict(ANALYSIS_DEVICE, damping=0.05), 1e-9, 1e-11,
+         dict(rtol=1e-5, atol=1e-8)),
+        ("midpoint", 1024, STIFF_DEVICE, 5e-9, 0.0, dict(rtol=1e-6, atol=1e-9, dt_max=5e-10)),
+        ("Radau", 1024, STIFF_DEVICE, 5e-9, 0.0, dict(rtol=1e-6, atol=1e-9, dt_max=5e-10)),
+    ):
+        ma = m[:batch]
+        res, ms = timed(lambda: AdaptiveLLGSSolver(method=method, device=dev, **kw).solve(
+            ma, (0.0, span), dp, current=cur_a))
+        ref = AdaptiveLLGSSolver(method=method, dtype=torch.float64, device="cpu", **kw).solve(
+            ma[:128].cpu().double(), (0.0, span), dp, current=cur_a)
+        err = float((res["m"][:128].cpu().double() - ref["m"]).abs().max())
+        check(res["success"] and ref["success"], f"{method}: an env did not reach t_end")
+        check(err < 10 * kw["rtol"], f"{method}: card vs CPU float64 {err}")
+        row = dict(method=method, batch=batch, ms=ms, iterations=res["iterations"],
+                   host_reads=res["host_reads"], mean_steps=float(res["n_steps"].float().mean()),
+                   mean_rejected=float(res["n_rejected"].float().mean()), max_abs_err_vs_f64=err)
+        adaptive.append(row)
+        print(f"AdaptiveLLGSSolver {method} B={batch} float32 over {span:g} s: {ms:.0f} ms, "
+              f"{res['iterations']} iterations, {res['host_reads']} host reads, "
+              f"{row['mean_steps']:.1f} steps and {row['mean_rejected']:.1f} rejections a "
+              f"row; vs the CPU port in float64 (128 rows) {err:.2e}  [{smi}]")
+    out["adaptive"] = adaptive
+
+    # ---- stable states and the landscape, card against CPU
+    stiff_card = params_from_dict(STIFF_DEVICE, device=dev)
+    states, search_ms = timed(lambda: find_stable_states(stiff_card, n_seeds=64, relax_time=2e-9))
+    states_cpu = find_stable_states(params_from_dict(STIFF_DEVICE, device="cpu"), n_seeds=64,
+                                    relax_time=2e-9)
+    check(len(states) == 2 and bool(np.all(np.abs(states[:, 2]) > 0.99))
+          and sorted(np.sign(states[:, 2]).tolist()) == [-1.0, 1.0],
+          f"find_stable_states on the card: {states}")
+    check(all(np.max(states_cpu @ s) > 1 - 1e-3 for s in states)
+          and len(states_cpu) == len(states), f"card {states} vs CPU {states_cpu}")
+    dirs = torch.randn(4096, 3, generator=g, dtype=torch.float64)
+    land_card = EnergyLandscape(params_from_dict(ANALYSIS_DEVICE, device=dev))
+    land_cpu = EnergyLandscape(params_from_dict(ANALYSIS_DEVICE, device="cpu"))
+    h_card = land_card.effective_field(dirs.to(dev), (1e4, 0.0, -2e4)).cpu()
+    h_cpu = land_cpu.effective_field(dirs, (1e4, 0.0, -2e4))
+    torch.testing.assert_close(h_card, h_cpu, rtol=1e-12, atol=1e-12 * float(h_cpu.abs().max()))
+    land_err = float(((h_card - h_cpu).abs() / h_cpu.abs().max()).max())
+    # The same minima as a set: grid points that tie to an ulp of sin/cos
+    # may pick another neighbour.
+    a, b = land_card.find_stable_states(91, 180), land_cpu.find_stable_states(91, 180)
+    check(a.shape == b.shape and bool((np.max(a @ b.T, axis=1) > 0.999).all()),
+          f"landscape minima differ: card {a}, CPU {b}")
+    out["search"] = dict(ms=search_ms, states=states.tolist(), landscape_field_rel=land_err)
+    print(f"find_stable_states (64 seeds, RK45 float32, 2 ns) on the card: {states.round(4)} "
+          f"in {search_ms:.0f} ms, the CPU's set; EnergyLandscape effective field on 4096 "
+          f"directions, card vs CPU float64: {land_err:.1e} of the largest  [{smi}]")
+
+    # ---- config, checkpoints and purity on the card
+    env = ConfigManager().make_env()
+    check(env.device.type == "cuda" and env.batch_size == 4096, "ConfigManager.make_env")
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    acts = global_actions(4096, 6, seed=41).to(dev)
+    state, _ = env.reset(seed=7)
+    for a in acts[:2]:
+        state, _ = env.step(state, a)
+    save_env_state(os.path.join(work, "env.pt"), state)
+    straight, resumed = state, load_env_state(os.path.join(work, "env.pt"), dev)
+    for a in acts[2:]:
+        straight, ts1 = env.step(straight, a)
+        resumed, ts2 = env.step(resumed, a)
+    check(torch.equal(straight.m, resumed.m) and torch.equal(ts1.obs, ts2.obs)
+          and straight.counter == resumed.counter == 6, "a saved env state did not resume")
+    trainer = PPOTrainer(SpinTorqueEnv(batch_size=4096, device=dev), PPOConfig())
+    tstate, _ = trainer.train_step(trainer.init(3))
+    save_train_state(os.path.join(work, "train.pt"), tstate)
+    tstate, _ = trainer.train_step(tstate)
+    again, _ = trainer.train_step(load_train_state(os.path.join(work, "train.pt"), trainer))
+    check(all(torch.equal(a, b) for a, b in zip(tstate.network.parameters(),
+                                                again.network.parameters())),
+          "a saved train state did not resume bit for bit")
+    pure = {}
+    for name, env, action in (
+        ("spin_torque", SpinTorqueEnv(batch_size=4096, device=dev,
+                                      config=SpinTorqueEnvConfig(max_steps=2)), acts[0]),
+        ("array", SpinTorqueArrayEnv(batch_size=4096, device=dev, config=ArrayEnvConfig(
+            max_steps=2)), torch.stack([torch.arange(4096, device=dev) % 16.0, acts[0, :, 0],
+                                        acts[0, :, 1]], -1)),
+        ("racetrack", SkyrmionRacetrackEnv(batch_size=4096, device=dev, config=SkyrmionEnvConfig(
+            max_steps=2)), torch.cat([1e11 * acts[0].repeat(1, 2) / 2e6,
+                                      acts[0, :, 1:] / 2.5], -1)),
+    ):
+        state, _ = env.reset(seed=5)
+        state, _ = env.step(state, action)
+        (s1, t1), (s2, t2) = env.step(state, action), env.step(state, action)
+        same = torch.equal(t1.obs, t2.obs) and torch.equal(t1.reward, t2.reward)
+        for f in dataclasses.fields(s1):
+            x, y = getattr(s1, f.name), getattr(s2, f.name)
+            same &= torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        resets = int((t1.terminated | t1.truncated).sum())
+        check(same and resets > 0, f"{name}: two steps of one state differ ({resets} resets)")
+        pure[name] = resets
+    out["checkpoint_purity"] = dict(purity_resets=pure)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"config, checkpoints, purity on the card: ConfigManager().make_env() B=4096 on cuda; "
+          f"an env state saved at step 2 resumes bit for bit over 4 steps; a PPOConfig() "
+          f"train state resumes bit for bit; two steps of one state equal bit for bit, thermal "
+          f"and auto-reset on, with {pure} envs reset; analysis phase {out['seconds']:.1f} s  "
+          f"[{smi}]")
     return out
 
 
@@ -1329,9 +1594,8 @@ def main():
     xk = torch.ones(sms * 2048, dtype=torch.float32, device=dev)
     k7_ms = cuda_ms(lambda: oc.op_chain(xk, "base2", 20_000, 256), 5)
     k7_plain_ms = cuda_ms(lambda: oc.op_chain_plain(xk, "base2", 20_000), 1)
-    # base2 is a plain FADD and a plain FMUL a step (--fmad=false): priced at
-    # the float32 instruction rate, not the FMA flop rate.
-    k7_bound = bound(xk.numel() * 20_000 * 2, 2 * 4 * xk.numel(), PEAK_FP32_INSTR)
+    # base2 is a plain FADD and a plain FMUL a step (--fmad=false).
+    k7_bound = bound(xk.numel() * 20_000 * 2, 2 * 4 * xk.numel())
     for shape, key in (("latency, 1 block of 1024", "latency_ns"),
                        ("throughput, per 1024 lanes", "throughput_ns_per_1024")):
         print(f"K7 ns/op ({shape}): "
@@ -1373,12 +1637,18 @@ def main():
     RECORD["device_factory"] = device_factory_phase(dev, smi)
     RECORD["gym_ids"] = gym_id_phases(dev, smi, rates[len(rates) // 2])
 
+    # ---------------------------------------------- 15. the analysis physics
+    RECORD["analysis"] = analysis_phase(dev, smi)
+    solver_launches = RECORD["analysis"]["solver"]["launches"][0]
+
     pulse = "spintorque_tpu_torch/csrc/pulse_integrator.cu"
     kernels = [
         dict(name="llgs_pulse", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:283",
-             launches=launches["llgs_pulse"],
-             max_abs_err=max(det_err, thermal_err, t_main["max_abs_err"]),
+             launches=launches["llgs_pulse"] + solver_launches,
+             launches_by_path=dict(env=launches["llgs_pulse"], solver=solver_launches),
+             max_abs_err=max(det_err, thermal_err, t_main["max_abs_err"],
+                             *(r["max_abs_err"] for r in RECORD["analysis"]["solver"]["solves"])),
              ms=t_main["ms"], plain_ms=t_main["plain_ms"], bound_ms=t_main["bound_ms"],
              bound_by=t_main["bound_by"], library_ms=None, chain_floor_ms=floors["K1"],
              deterministic_ms=t_det["ms"],

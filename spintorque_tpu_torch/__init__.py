@@ -9,8 +9,12 @@ data-parallel path over torch.distributed (``parallel``: each rank holds
 its rows of the batch and runs the pulse kernel on them), the switching /
 parameter-ladder sweeps (``research``), the crossbar array and skyrmion
 racetrack envs, the device factory and its analytics (``devices``), and
-the Gymnasium adapters. The JAX package ``spintorque_tpu`` is the
-reference it is tested against.
+the Gymnasium adapters; the analysis physics (the solver facades
+``LLGSSolver`` and ``AdaptiveLLGSSolver``, trajectories, adaptive RK45,
+midpoint and Radau integration, thermal analytics, energy landscapes,
+materials) and the shell (``config``, ``utils.checkpoint``,
+``utils.profiling``). The JAX package ``spintorque_tpu`` is the reference it
+is tested against.
 
 Importing the package registers the Gymnasium ids
 ``spintorque_torch/SpinTorque-v0``, ``spintorque_torch/SpinTorqueArray-v0``
@@ -33,7 +37,15 @@ from .envs import (
     SpinTorqueEnvConfig,
     TimeStep,
 )
-from .physics import IntegratorConfig, LLGSParams, integrate_pulse
+from .physics import (
+    IntegratorConfig,
+    LLGSParams,
+    LLGSSolver,
+    MaterialDatabase,
+    SimpleLLGSSolver,
+    ThermalFluctuations,
+    integrate_pulse,
+)
 from .rewards import CompositeReward
 from .rl import ActorCritic, PPOConfig, PPOTrainer
 from .utils import measure_env_throughput, measure_train_throughput
@@ -68,6 +80,10 @@ __all__ = [
     "TimeStep",
     "IntegratorConfig",
     "LLGSParams",
+    "LLGSSolver",
+    "SimpleLLGSSolver",
+    "MaterialDatabase",
+    "ThermalFluctuations",
     "integrate_pulse",
     "CompositeReward",
     "ActorCritic",

@@ -11,8 +11,8 @@ The JAX side is seen only as numpy dicts of its dataclass fields (flax
   * the flax ``ActorCritic`` parameter tree -> ``rl.ActorCritic`` and back.
 
 A JAX PRNG key (two uint32 words) maps to the port's 64-bit seed as
-(key[0] << 32) | key[1], and back; the port's generator is seeded with it
-and SpinTorqueEnv's host step counter starts at 0.
+(key[0] << 32) | key[1], and back; the host step counter, which with the
+seed keys a step's draws, starts at 0.
 """
 
 from __future__ import annotations
@@ -74,19 +74,17 @@ def key_from_seed(seed: int) -> np.ndarray:
 
 
 def _state_fields(d: Dict[str, Any], names, device, dtype) -> Dict[str, Any]:
-    """The tensor leaves ``names``, the seed, the generator seeded with it
-    and the reward statistics of a state, from a JAX state's numpy leaves.
+    """The tensor leaves ``names``, the seed, a step counter of 0 and the
+    reward statistics of a state, from a JAX state's numpy leaves.
     ``dtype`` casts the floating leaves (``step`` stays int32)."""
     device = torch.device(device)
     seed = seed_from_key(d["key"])
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
     fields = {k: _tensor(d[k], device, torch.int32 if k == "step" else dtype) for k in names}
     stats = {
         name: RunningStat(**{k: _tensor(v, device, dtype) for k, v in st.items()})
         for name, st in d.get("reward_stats", {}).items()
     }
-    return dict(fields, seed=seed, generator=generator, reward_stats=stats)
+    return dict(fields, seed=seed, counter=0, reward_stats=stats)
 
 
 def _state_to_numpy(state, names) -> Dict[str, Any]:
@@ -105,12 +103,12 @@ def env_state_from_numpy(d: Dict[str, Any], *, device, dtype=None) -> EnvState:
     """EnvState from the JAX EnvState's leaves as numpy arrays.
 
     ``dtype`` casts the floating leaves (``step`` stays int32)."""
-    return EnvState(**_state_fields(d, _STATE_TENSORS, device, dtype), counter=0)
+    return EnvState(**_state_fields(d, _STATE_TENSORS, device, dtype))
 
 
 def env_state_to_numpy(state: EnvState) -> Dict[str, Any]:
     """The JAX EnvState's leaves from the port's EnvState (the host step
-    counter has no JAX counterpart)."""
+    counter has no JAX counterpart: the JAX state's key advances instead)."""
     return _state_to_numpy(state, _STATE_TENSORS)
 
 

@@ -20,9 +20,11 @@ pre-update resistance of each affected device. The 'global' action mode
 reads the current from action[1] and always pulses 1 ns, and thermal
 fluctuations are accepted but never applied, as in the reference.
 
-The state carries a torch.Generator on the env's device for the reset and
-auto-reset draws; it advances in place, so it is shared by the states a
-step returns. ``step`` writes into no tensor of the state it is given.
+The reset draws come from a torch.Generator seeded with the reset seed;
+step k's auto-reset draws from one seeded from the state's (seed, k) under
+a stream tag of its own (``ops.philox.step_generator``). The state holds
+no generator, and ``step`` writes into no tensor of the state it is given,
+so a step is a function of its state.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..constants import GAMMA, MU0
 from ..devices import make_device_params
 from ..devices.resistance import pulse_energy as _pulse_energy
 from ..devices.resistance import resistance as _resistance
+from ..ops.philox import RESET_STREAM, step_generator
 from ..parallel.mesh import resolve_device
 from ..rewards import CompositeReward, RewardContext, RunningStat
 
@@ -83,8 +86,8 @@ class ArrayEnvState:
     step: Tensor  # (B,) int32
     total_energy: Tensor  # (B,)
     episode_return: Tensor  # (B,)
-    seed: int  # the reset seed
-    generator: torch.Generator  # reset and auto-reset draws
+    seed: int  # the reset seed; with counter, the key of a step's draws
+    counter: int  # steps taken since reset
     reward_stats: Dict[str, RunningStat] = dataclasses.field(default_factory=dict)
 
 
@@ -224,7 +227,8 @@ class SpinTorqueArrayEnv:
     # ------------------------------------------------------------------ API
 
     def reset(self, seed: int) -> Tuple[ArrayEnvState, Any]:
-        """A fresh batch; ``seed`` seeds the generator of the reset draws."""
+        """A fresh batch; ``seed`` seeds the generator of the reset draws
+        and, with the step counter, keys every later step's draws."""
         cfg = self.config
         dtype = cfg.torch_dtype
         B, N = self.batch_size, cfg.n_devices
@@ -241,7 +245,7 @@ class SpinTorqueArrayEnv:
             total_energy=zeros,
             episode_return=zeros,
             seed=seed,
-            generator=generator,
+            counter=0,
             reward_stats=stats,
         )
         return state, self.observe(state)
@@ -423,7 +427,7 @@ class SpinTorqueArrayEnv:
 
         magnitudes = torch.linalg.vector_norm(pattern, dim=-1)  # (B, N)
         mid_state = dataclasses.replace(state, pattern=pattern, step=step,
-                                        total_energy=total_energy)
+                                        total_energy=total_energy, counter=state.counter + 1)
         obs_step = self.observe(mid_state)
 
         ctx = RewardContext(
@@ -458,7 +462,8 @@ class SpinTorqueArrayEnv:
         }
 
         if cfg.autoreset:
-            m_reset = self._sample_pattern(state.generator)
+            m_reset = self._sample_pattern(
+                step_generator(state.seed, state.counter, RESET_STREAM, self.device))
             next_state = dataclasses.replace(
                 mid_state,
                 pattern=torch.where(done[:, None, None], m_reset, pattern),

@@ -14,9 +14,11 @@ resistive pulse energy.
 
 The pinning sites are drawn at construction from
 ``np.random.default_rng(seed)`` with the JAX package's calls, so both
-packages hold the same sites. The thermal kick and the reset draws come
-from the state's torch.Generator, on the env's device; it advances in
-place, so it is shared by the states a step returns.
+packages hold the same sites. The reset draws come from a torch.Generator
+seeded with the reset seed; step k's thermal kicks and auto-reset draws
+from generators on the env's device seeded from the state's (seed, k),
+each under a stream tag of its own (``ops.philox.step_generator``). The
+state holds no generator, so a step is a function of its state.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ..constants import KB_SOLVER
+from ..ops.philox import KICK_STREAM, RESET_STREAM, step_generator
 from ..parallel.mesh import resolve_device
 from ..rewards import CompositeReward, RewardContext, RunningStat
 
@@ -76,8 +79,8 @@ class SkyrmionEnvState:
     step: Tensor  # (B,) int32
     total_energy: Tensor  # (B,)
     episode_return: Tensor  # (B,)
-    seed: int  # the reset seed
-    generator: torch.Generator  # thermal kicks, reset and auto-reset draws
+    seed: int  # the reset seed; with counter, the key of a step's draws
+    counter: int  # steps taken since reset
     reward_stats: Dict[str, RunningStat] = dataclasses.field(default_factory=dict)
 
 
@@ -199,7 +202,7 @@ class SkyrmionRacetrackEnv:
 
     def reset(self, seed: int) -> Tuple[SkyrmionEnvState, Any]:
         """A fresh batch; ``seed`` seeds the generator of the reset draws
-        and thermal kicks."""
+        and, with the step counter, keys every later step's draws."""
         cfg = self.config
         dtype = cfg.torch_dtype
         B, n = self.batch_size, cfg.n_skyrmions
@@ -216,7 +219,7 @@ class SkyrmionRacetrackEnv:
             total_energy=zeros,
             episode_return=zeros,
             seed=seed,
-            generator=generator,
+            counter=0,
             reward_stats=stats,
         )
         return state, self.observe(state)
@@ -358,8 +361,9 @@ class SkyrmionRacetrackEnv:
             # A random unit direction times the thermal magnitude, per
             # skyrmion per step.
             mag = math.sqrt(2.0 * KB_SOLVER * cfg.temperature / (cfg.skyrmion_radius * 1e-9))
-            d = torch.randn((B, n, 2), generator=state.generator, dtype=dtype,
-                            device=self.device)
+            d = torch.randn((B, n, 2), dtype=dtype, device=self.device,
+                            generator=step_generator(state.seed, state.counter, KICK_STREAM,
+                                                     self.device))
             d = d / torch.clamp_min(_norm(d, keepdim=True), 1e-30)
             force = force + mag * d
 
@@ -404,7 +408,7 @@ class SkyrmionRacetrackEnv:
         done = terminated | truncated
 
         mid_state = dataclasses.replace(state, positions=pos, velocities=vel, step=step,
-                                        total_energy=total_energy)
+                                        total_energy=total_energy, counter=state.counter + 1)
         obs_step = self.observe(mid_state)
 
         ctx = RewardContext(
@@ -441,7 +445,8 @@ class SkyrmionRacetrackEnv:
         }
 
         if cfg.autoreset:
-            pos_reset = self._sample_positions(state.generator)
+            pos_reset = self._sample_positions(
+                step_generator(state.seed, state.counter, RESET_STREAM, self.device))
             d2 = done[:, None, None]
             next_state = dataclasses.replace(
                 mid_state,

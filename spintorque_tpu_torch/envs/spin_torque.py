@@ -8,9 +8,13 @@ resistance, the 12-dim observation, the composite reward, termination and
 auto-reset.
 
 On CUDA the step reads nothing back from the device: constants live on the
-device from construction, the per-step Philox key of the thermal noise comes
-from a host-side step counter, and auto-reset draws from a torch.Generator
-on the device.
+device from construction, and every draw of a step is keyed on the host
+from the state's seed and step counter: the pulse's Philox key is
+derive_seed(seed, counter), and the auto-reset states come from a
+torch.Generator on the device seeded from the same pair under a stream tag
+of its own (``ops.philox.step_generator``). A step is therefore a function
+of its state: stepping one state twice gives the same outputs and next
+states, bit for bit.
 
 On a mesh (``mesh=``, ``parallel.make_mesh``) ``batch_size`` stays the global
 B and each rank holds its B/W rows: the pulse runs on the rank's shard (K5
@@ -32,7 +36,7 @@ from ..devices import DeviceParams, make_device_params
 from ..devices.resistance import pulse_energy as _pulse_energy
 from ..devices.resistance import resistance as _resistance
 from ..ops.cuda_integrator import cuda_kernel_available, cuda_supported, is_plus_z
-from ..ops.philox import derive_seed
+from ..ops.philox import RESET_STREAM, derive_seed, step_generator
 from ..parallel.mesh import local_batch_size, resolve_device, shard_batch
 from ..physics.integrator import (
     IntegratorConfig,
@@ -96,9 +100,10 @@ class SpinTorqueEnvConfig(NamedTuple):
 class EnvState:
     """Batched environment state.
 
-    ``generator`` draws the auto-reset states and advances in place, so it
-    is shared by the states a step returns. ``seed`` and ``counter`` live on
-    the host: step k's thermal noise is keyed by derive_seed(seed, k).
+    ``seed`` and ``counter`` live on the host and key every draw of step
+    ``counter``: its thermal noise by derive_seed(seed, counter), its
+    auto-reset states by ``step_generator(seed, counter, RESET_STREAM)``.
+    The state holds no generator, so nothing in it advances in place.
     """
 
     m: Tensor  # (B, 3) magnetization
@@ -108,9 +113,8 @@ class EnvState:
     last_current: Tensor  # (B,)
     last_duration: Tensor  # (B,)
     episode_return: Tensor  # (B,) running sum of rewards
-    seed: int  # 64-bit base key of the thermal noise
+    seed: int  # 64-bit base key of every draw of a step
     counter: int  # steps taken since reset
-    generator: torch.Generator  # reset sampling
     reward_stats: Dict[str, RunningStat] = dataclasses.field(default_factory=dict)
 
 
@@ -209,8 +213,8 @@ class SpinTorqueEnv:
     # ------------------------------------------------------------------ API
 
     def reset(self, seed: int) -> Tuple[EnvState, Any]:
-        """A fresh batch; ``seed`` seeds the reset generator and keys the
-        thermal noise."""
+        """A fresh batch; ``seed`` seeds the generator of the reset draws and
+        keys every later step's draws."""
         dtype = self.config.torch_dtype
         B = self.local_batch_size
         generator = torch.Generator(device=self.device)
@@ -232,7 +236,6 @@ class SpinTorqueEnv:
             episode_return=zeros(),
             seed=seed,
             counter=0,
-            generator=generator,
             reward_stats=stats,
         )
         return state, self.observe(state)
@@ -253,8 +256,8 @@ class SpinTorqueEnv:
 
     def _rows(self, x: Tensor) -> Tensor:
         """This rank's rows of a global batch draw (all of it without a
-        mesh): every rank draws the whole batch, so its generator advances
-        as the one-process env's does."""
+        mesh): every rank draws the whole batch from the same key, as the
+        one-process env does."""
         return x if self.mesh is None else shard_batch(x, self.mesh)
 
     def _sample_m(self, generator) -> Tensor:
@@ -435,8 +438,9 @@ class SpinTorqueEnv:
 
         if cfg.autoreset:
             # Done envs are reset on the device, by selects.
-            m_reset = self._sample_m(state.generator)
-            t_reset = self._sample_target(state.generator)
+            generator = step_generator(state.seed, state.counter, RESET_STREAM, self.device)
+            m_reset = self._sample_m(generator)
+            t_reset = self._sample_target(generator)
             d3 = done[:, None]
             next_state = dataclasses.replace(
                 mid_state,

@@ -74,6 +74,24 @@ def derive_seed(seed: int, counter: int) -> int:
     return z ^ (z >> 31)
 
 
+# Stream tags of the draws an env step keys from its state's (seed,
+# counter) besides the pulse's thermal noise, which takes
+# derive_seed(seed, counter) itself.
+RESET_STREAM = 1  # auto-reset states
+KICK_STREAM = 2  # the racetrack's thermal kicks
+
+
+def step_generator(seed: int, counter: int, stream: int, device) -> torch.Generator:
+    """A torch.Generator on ``device`` for stream ``stream`` of step
+    ``counter``, seeded with derive_seed(derive_seed(seed, counter), stream):
+    a key of its own, never the pulse's. A step that draws from it reads and
+    advances nothing of the state, so stepping one state twice draws the
+    same numbers."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(derive_seed(derive_seed(seed, counter), stream))
+    return generator
+
+
 def uniform_from_bits(w: Tensor, dtype) -> Tensor:
     """Uniform in [0, 1) from 23 random mantissa bits (exact in float32)."""
     return (w & 0x7FFFFF).to(dtype) * (2.0**-23)

@@ -113,8 +113,8 @@ def shard_batch(x: Tensor, mesh: Mesh) -> Tensor:
 
 def shard_env_state(state, mesh: Mesh):
     """This rank's rows of a global (unsharded) EnvState: every batch-major
-    tensor, the reward statistics included; host fields and the reset
-    generator are kept. Equals the state that ``SpinTorqueEnv(mesh=mesh)``
+    tensor, the reward statistics included; the host fields (seed,
+    counter) are kept. Equals the state that ``SpinTorqueEnv(mesh=mesh)``
     returns from ``reset`` with the same seed."""
     def rows(x):
         return shard_batch(x, mesh) if isinstance(x, Tensor) and x.ndim >= 1 else x

@@ -1,7 +1,8 @@
-"""Physics: batched LLGS dynamics and the pulse integrator.
+"""Physics: batched LLGS dynamics, the pulse integrator, the solver
+facades, adaptive integration, thermal models, energy landscapes and
+materials.
 
-PyTorch counterpart of ``spintorque_tpu/physics``; only the modules the
-vectorized env step reads are ported so far.
+PyTorch counterpart of ``spintorque_tpu/physics``, with the same names.
 """
 
 from .integrator import (
@@ -9,6 +10,7 @@ from .integrator import (
     PulseResult,
     integrate_pulse,
     integrate_pulse_plain,
+    integrate_pulse_trajectory,
     max_substeps_for,
     substep_counts,
 )
@@ -20,12 +22,41 @@ from .llgs import (
     normalize_with_fallback,
     thermal_field_strength,
 )
+from .adaptive import (
+    AdaptiveResult,
+    find_stable_states,
+    integrate_adaptive,
+    llgs_solver_rhs,
+    trajectory_energy,
+    trajectory_torques,
+)
+from .energy_landscape import EnergyLandscape
+from .materials import MaterialDatabase, MaterialProperties
+from .solver import (
+    AdaptiveLLGSSolver,
+    LLGSSolver,
+    RobustLLGSSolver,
+    ScalableLLGSSolver,
+    SimpleLLGSSolver,
+    params_from_dict,
+)
+from .thermal import ThermalFluctuations
+from .vector_ops import (
+    batch_anisotropy_field,
+    batch_cross,
+    batch_demag_field_thin_film,
+    batch_dot,
+    batch_magnetic_energy,
+    batch_normalize,
+    batch_tmr_resistance,
+)
 
 __all__ = [
     "IntegratorConfig",
     "PulseResult",
     "integrate_pulse",
     "integrate_pulse_plain",
+    "integrate_pulse_trajectory",
     "max_substeps_for",
     "substep_counts",
     "LLGSParams",
@@ -34,4 +65,27 @@ __all__ = [
     "energy_density",
     "normalize_with_fallback",
     "thermal_field_strength",
+    "MaterialDatabase",
+    "MaterialProperties",
+    "LLGSSolver",
+    "AdaptiveLLGSSolver",
+    "SimpleLLGSSolver",
+    "RobustLLGSSolver",
+    "ScalableLLGSSolver",
+    "params_from_dict",
+    "ThermalFluctuations",
+    "EnergyLandscape",
+    "AdaptiveResult",
+    "llgs_solver_rhs",
+    "integrate_adaptive",
+    "find_stable_states",
+    "trajectory_energy",
+    "trajectory_torques",
+    "batch_cross",
+    "batch_dot",
+    "batch_normalize",
+    "batch_magnetic_energy",
+    "batch_tmr_resistance",
+    "batch_anisotropy_field",
+    "batch_demag_field_thin_film",
 ]

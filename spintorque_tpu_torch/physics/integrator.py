@@ -14,7 +14,8 @@ its state (the masked loop).
 CUDA tensors go to the hand-written kernel (``ops/cuda_integrator.py``),
 CPU tensors to ``integrate_pulse_plain``, the kernel's plain version, which
 loops in Python to the batch's largest n. There is no fallback from one to
-the other.
+the other. ``integrate_pulse_trajectory`` runs that plain loop on any
+device and records every substep's state.
 
 Thermal noise modes:
   * 'reference' - per-field-evaluation white field with Brown's sigma and NO
@@ -240,6 +241,35 @@ def integrate_pulse_plain(
     ``config.thermal``); the counter of env b's draw d at substep i is
     (env_offset + b, i, d, 0), exactly as the kernel counts it.
     """
+    return _plain_loop(m0, span, current, params, config, seed, temperature, env_offset)[0]
+
+
+def integrate_pulse_trajectory(
+    m0: Tuple[Tensor, Tensor, Tensor],
+    span: Tensor,
+    current: Tensor,
+    params: LLGSParams,
+    config: IntegratorConfig,
+    seed: Optional[int] = None,
+    temperature=300.0,
+) -> Tuple[PulseResult, Tensor]:
+    """Like ``integrate_pulse``, and records the state after every substep.
+
+    Returns (PulseResult, trajectory): the trajectory is (max_substeps + 1,
+    3, B), row 0 the initial state and row i + 1 the state after substep
+    i; an env past its n repeats its held state, as in the JAX package's
+    fixed-length scan. The plain loop of ``integrate_pulse_plain`` (the same
+    substeps, the same Philox draws) on any device, in any dtype: it stops
+    at the batch's largest n and fills the rows after it with the final
+    state. An analysis path: no kernel runs it.
+    """
+    return _plain_loop(m0, span, current, params, config, seed, temperature, 0, trajectory=True)
+
+
+def _plain_loop(m0, span, current, params, config, seed, temperature, env_offset,
+                trajectory=False):
+    """The plain masked substep loop: (PulseResult, the (max_substeps + 1,
+    3, B) trajectory when ``trajectory``, else None)."""
     check_config(config)
     mx, my, mz = m0
     dtype = mx.dtype
@@ -265,6 +295,11 @@ def integrate_pulse_plain(
         draws = noise_draws(config)
 
     failed = torch.zeros(mx.shape, dtype=torch.bool, device=mx.device)
+    traj = None
+    if trajectory:
+        traj = torch.empty((config.max_substeps + 1, 3) + tuple(mx.shape), dtype=dtype,
+                           device=mx.device)
+        torch.stack((mx, my, mz), out=traj[0])
     normals = None
     for i in range(n_max):
         stage = None
@@ -281,7 +316,11 @@ def integrate_pulse_plain(
         my = torch.where(active, ny, my)
         mz = torch.where(active, nz, mz)
         failed = failed | zero_row
-    return PulseResult(m=(mx, my, mz), n_substeps=n, dt=dt, failed=failed)
+        if traj is not None:
+            torch.stack((mx, my, mz), out=traj[i + 1])
+    if traj is not None:
+        traj[n_max + 1:] = torch.stack((mx, my, mz))
+    return PulseResult(m=(mx, my, mz), n_substeps=n, dt=dt, failed=failed), traj
 
 
 def integrate_pulse(

@@ -235,3 +235,74 @@ def test_sharded_kernel_equals_unsharded(cuda, bf16_rhs):
         _assert_close(out, integrate_pulse_plain(tuple(shard[:3]), shard[3], shard[4], p, cfg,
                                                  seed=3, env_offset=r * n), tol=1e-5)
     assert ci.PULSE_SHARDED_LAUNCHES.count - before == W
+
+
+DEVICE_PARAMS = dict(volume=1e-23, saturation_magnetization=800e3, damping=0.01,
+                     uniaxial_anisotropy=1.2e6, polarization=0.7, easy_axis=[0.6, 0.0, 0.8])
+
+
+@pytest.mark.parametrize("method", ["euler", "heun", "rk4"])
+@pytest.mark.parametrize("thermal", [False, True], ids=["deterministic", "thermal"])
+def test_solver_runs_k1_and_matches_plain(cuda, method, thermal):
+    """LLGSSolver.solve on the card launches K1 once and agrees with the
+    plain version on the card, which the trajectory's loop runs (the CPU's
+    float32 ops differ from the card's in the last bit, which these
+    currents amplify): 2e-6 deterministic, 1e-5 thermal (the same Philox
+    stream), n_steps and failed identical."""
+    from spintorque_tpu_torch.physics import LLGSSolver
+
+    g = torch.Generator().manual_seed(9)
+    m = torch.randn(300, 3, generator=g)
+    solver = LLGSSolver(method=method, max_substeps=512, device=cuda)
+    kw = dict(current=50.0, thermal_noise=thermal, seed=5)
+    before = ci.PULSE_LAUNCHES.count
+    card = solver.solve(m, (0.0, 2e-10), DEVICE_PARAMS, **kw)
+    assert ci.PULSE_LAUNCHES.count - before == 1
+    plain = solver.solve(m, (0.0, 2e-10), DEVICE_PARAMS, return_trajectory=True, **kw)
+    assert ci.PULSE_LAUNCHES.count - before == 1
+    tol = 1e-5 if thermal else 2e-6
+    torch.testing.assert_close(card["m"], plain["m"][:, -1], rtol=tol, atol=tol)
+    assert torch.equal(card["n_steps"], plain["n_steps"])
+    assert torch.equal(card["failed"], plain["failed"])
+
+
+def test_solver_float64_on_the_card_raises(cuda):
+    from spintorque_tpu_torch.physics import LLGSSolver
+
+    solver = LLGSSolver(dtype=torch.float64, device=cuda)
+    before = ci.PULSE_LAUNCHES.count
+    with pytest.raises(ValueError, match="does not cover"):
+        solver.solve([0.0, 0.1, 0.99], (0.0, 1e-10), DEVICE_PARAMS)
+    assert ci.PULSE_LAUNCHES.count == before
+    traj = solver.solve([0.0, 0.1, 0.99], (0.0, 1e-11), DEVICE_PARAMS, return_trajectory=True)
+    assert traj["m"].dtype == torch.float64 and traj["m"].device.type == "cuda"
+
+
+def test_adaptive_on_the_card_matches_the_cpu(cuda):
+    from spintorque_tpu_torch.physics import AdaptiveLLGSSolver
+
+    m = torch.randn(64, 3, generator=torch.Generator().manual_seed(2))
+    for method in ("RK45", "midpoint", "Radau"):
+        card = AdaptiveLLGSSolver(method=method, rtol=1e-5, atol=1e-8, device=cuda).solve(
+            m, (0.0, 2e-11), DEVICE_PARAMS)
+        cpu = AdaptiveLLGSSolver(method=method, rtol=1e-5, atol=1e-8, dtype=torch.float64,
+                                 device="cpu").solve(m.double(), (0.0, 2e-11), DEVICE_PARAMS)
+        assert card["success"] and cpu["success"]
+        torch.testing.assert_close(card["m"].cpu().double(), cpu["m"], rtol=0, atol=1e-4)
+
+
+def test_env_states_are_pure_and_resume_on_the_card(cuda, tmp_path):
+    from spintorque_tpu_torch.utils import load_env_state, save_env_state
+
+    env = SpinTorqueEnv(batch_size=256, device=cuda, max_steps=2, max_duration=2e-10)
+    action = torch.stack([torch.linspace(-2e6, 2e6, 256), torch.full((256,), 1e-10)], -1).to(cuda)
+    state, _ = env.reset(seed=3)
+    state, _ = env.step(state, action)
+    save_env_state(tmp_path / "s.pt", state)
+    a, ta = env.step(state, action)
+    b, tb = env.step(state, action)
+    c, tc = env.step(load_env_state(tmp_path / "s.pt", cuda), action)
+    for x in (b, c):
+        assert torch.equal(a.m, x.m) and torch.equal(a.target, x.target)
+    for x in (tb, tc):
+        assert torch.equal(ta.obs, x.obs) and torch.equal(ta.reward, x.reward)
