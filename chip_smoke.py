@@ -27,7 +27,15 @@ an easy axis taken from a dict; the trajectory at B=4096 over 2 ns; the
 adaptive RK45 (B=4096), implicit midpoint and Radau (B=1024, the stiff
 case); the stable-state search and the energy landscape; the solver
 probes; ConfigManager().make_env(), the env and trainer checkpoint round
-trips and step purity of the three envs on the card. Each path's launch
+trips and step purity of the three envs on the card. Then the shell
+(``shell_phase``): ``python -m spintorque_tpu_torch.cli info`` in a fresh
+process, and in this one the CLI's ``benchmark`` (B=4096), ``train`` (B=4096,
+the default PPO configuration, 3 updates) and ``eval --model`` of its
+output (200 steps), the default ``sweep`` (16,384 trajectories) bit for bit
+with a direct call, the serving endpoint (its health checks launch K1 from
+the refresh thread), the coalescing ``PhysicsWorkerPool`` fed 4096 solves
+from 8 threads, bit for bit with one ``solve_batch``, ``ParallelBenchmark``
+and ``ScalableEnvironmentManager`` at B=1024/4096/16384. Each path's launch
 counts are set to 0 just before it and read just after. Any failed check
 raises and exits non-zero.
 
@@ -84,13 +92,17 @@ Tolerances:
     for the same reason (its rate r is such an exponential);
   * the analysis phase: the solver's K1 results against the plain version
     on the card over the first 4096 rows of each batch (each env integrates
-    and draws on its own): 2e-6 deterministic, 1e-5 thermal, n and failed
-    identical; the trajectory's last row against the K1 solve at 2e-6; the
-    adaptive methods in float32 on the card against the CPU port in
+    and draws on its own; rk4 thermal over the solve's 5 ns, the other five
+    over 1 ns, the plain loop's time being its substeps): 2e-6
+    deterministic, 1e-5 thermal, n and failed identical; the trajectory's
+    last row against the K1 solve at 2e-6; the adaptive methods in float32 on the card against the CPU port in
     float64 on their first 128 rows, within 10x the rtol; the stable
     states and the landscape's minima as sets, its effective field at rtol
     1e-12 (float64 on both); checkpoints and two steps of one state bit for
     bit;
+  * the shell: the CLI sweep against a direct call with the same
+    arguments, and the worker pool's coalesced solves against one
+    ``solve_batch``, bit for bit (each env integrates on its own);
   * the functional envs of the Gymnasium ids, card vs CPU from the same
     state and actions, float32, thermal off: SpinTorque-v0 10 steps at
     1e-4 on obs and reward (as the one-step check); the array env one step
@@ -676,14 +688,22 @@ def analysis_phase(dev, smi):
 
     # ...each held to the plain version on the card over its first 4096
     # rows (each env integrates and draws on its own): 2e-6 deterministic,
-    # 1e-5 thermal, n and failed identical.
+    # 1e-5 thermal, n and failed identical. The plain loop is host-bound,
+    # its time its substeps: rk4 thermal (the main path's method) is held
+    # over the full 5 ns; the other five over 1 ns, against a K1 solve of
+    # those rows over 1 ns.
     rows = 4096
     p = params_from_dict(ANALYSIS_DEVICE, device=dev)
     m0 = normalize_with_fallback(*m[:rows].unbind(-1))
-    span = torch.full((rows,), 5e-9, device=dev)
     solve_rows = []
     for (method, thermal), (res, ms) in solves.items():
+        span_s = 5e-9 if (method, thermal) == ("rk4", True) else 1e-9
+        if span_s != 5e-9:
+            res = LLGSSolver(method=method, device=dev).solve(
+                m[:rows], (0.0, span_s), ANALYSIS_DEVICE, current=cur[:rows],
+                thermal_noise=thermal, seed=13)
         cfg = IntegratorConfig(method=method, thermal=thermal)  # the solver's defaults
+        span = torch.full((rows,), span_s, device=dev)
         want, plain_ms = timed(lambda: integrate_pulse_plain(
             m0, span, cur[:rows], p, cfg, seed=13 if thermal else None))
         tol = 1e-5 if thermal else 2e-6
@@ -693,13 +713,13 @@ def analysis_phase(dev, smi):
               and torch.equal(res["failed"][:rows], want.failed),
               f"solver {method} thermal={thermal}: n or failed differ from the plain version")
         err = float((got - torch.stack(want.m, -1)).abs().max())
-        frozen = int(res["failed"].sum())
+        frozen = int(solves[(method, thermal)][0]["failed"].sum())
         solve_rows.append(dict(method=method, thermal=thermal, ms=ms, plain_ms_4096=plain_ms,
-                               max_abs_err=err, failed=frozen))
+                               plain_span_s=span_s, max_abs_err=err, failed=frozen))
         print(f"LLGSSolver {method:5s} {'thermal' if thermal else 'deterministic':13s} "
               f"B={B} 5 ns, tilted axis from a dict: {ms:.2f} ms (K1, with the host read of "
-              f"success); plain on 4096 rows {plain_ms:.0f} ms, max_abs_err {err:.2e}; "
-              f"{frozen} envs failed  [{smi}]")
+              f"success); plain on 4096 rows over {span_s * 1e9:g} ns {plain_ms:.0f} ms, "
+              f"max_abs_err {err:.2e}; {frozen} envs failed  [{smi}]")
     out["solver"] = dict(solves=solve_rows, launches=solver_launches)
 
     # ---- the trajectory: B=4096, 2 ns, the defaults (euler, 5120 rows)
@@ -823,6 +843,219 @@ def analysis_phase(dev, smi):
           f"train state resumes bit for bit; two steps of one state equal bit for bit, thermal "
           f"and auto-reset on, with {pure} envs reset; analysis phase {out['seconds']:.1f} s  "
           f"[{smi}]")
+    return out
+
+
+def write_record():
+    """Writes RECORD to build/chip_smoke.json (the card's record, which the
+    serving endpoint's readiness reads)."""
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(RECORD, f, indent=1)
+
+
+def shell_phase(dev, smi, main_rate):
+    """The command line and the serving shell on the card, each item with
+    its K1 launches counted from 0 and its wall ms: ``python -m
+    spintorque_tpu_torch.cli info`` in a subprocess (the standalone entry);
+    in this process ``benchmark`` at B=4096, ``train`` at B=4096 with the
+    default PPO configuration for 3 updates and ``eval --model`` of its
+    output over 200 steps, the default ``sweep`` (16 x 16 x 64 = 16,384
+    trajectories) against a direct ``switching_probability_diagram`` call;
+    the serving endpoint with its health checks refreshed on its thread;
+    the coalescing ``PhysicsWorkerPool`` fed 4096 solves from 8 threads
+    against one ``solve_batch``; ``ParallelBenchmark`` and
+    ``ScalableEnvironmentManager``."""
+    import contextlib
+    import io
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from spintorque_tpu_torch import cli
+    from spintorque_tpu_torch.deployment import ServingEndpoint
+    from spintorque_tpu_torch.devices import make_device_params
+    from spintorque_tpu_torch.envs import SpinTorqueEnv
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+    from spintorque_tpu_torch.physics.solver import params_from_dict
+    from spintorque_tpu_torch.research import switching_probability_diagram
+    from spintorque_tpu_torch.utils import (
+        ParallelBenchmark,
+        PhysicsWorkerPool,
+        ScalableEnvironmentManager,
+        parallel_map,
+    )
+
+    out = {}
+    t_phase = time.perf_counter()
+    counters = (ci.PULSE_LAUNCHES, ci.PULSE_BF16_LAUNCHES, ci.PULSE_SHARDED_LAUNCHES)
+    kind = torch.cuda.get_device_name(0)
+
+    def start():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        return time.perf_counter()
+
+    def stop(name, t0, want=None, **extra):
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        k1, k6, k5 = (c.count for c in counters)
+        check(k6 == 0 and k5 == 0, f"{name} launched K6 {k6} / K5 {k5} times")
+        if want is not None:
+            check(k1 == want, f"{name} launched K1 {k1} times, want {want}")
+        out[name] = dict(ms=ms, k1_launches=k1, **extra)
+        return out[name]
+
+    def run_cli(argv):
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = cli.main(argv)
+        check(rc == 0, f"cli {argv} exited {rc}")
+        return buf.getvalue()
+
+    # ---- the standalone entry: a fresh process that imports no JAX
+    t0 = start()
+    proc = subprocess.run([sys.executable, "-m", "spintorque_tpu_torch.cli", "info"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0 and kind in proc.stdout,
+          f"cli info exited {proc.returncode} without naming {kind}: {proc.stderr[-2000:]}")
+    stop("info_subprocess", t0, want=0)
+
+    # ---- benchmark: measure_env_throughput at B=4096, 16-step programs
+    t0 = start()
+    bench = json.loads(run_cli(["benchmark", "--batch-size", "4096"]).strip().splitlines()[-1])
+    steps = (min(12, 2 * 5) + 5) * 16
+    stop("benchmark", t0, want=steps, env_steps_per_s=bench["env_steps_per_s"])
+    check(bench["backend"] == "cuda" and bench["devices"] == 1, f"benchmark: {bench}")
+
+    # ---- train (3 updates of PPOConfig() at B=4096), then eval --model
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    policy_path = os.path.join(work, "policy.pt")
+    t0 = start()
+    text = run_cli(["train", "--batch-size", "4096", "--timesteps", str(3 * 16 * 4096),
+                    "--output", policy_path, "--log-every", "1"])
+    summary = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+    stop("train", t0, want=3 * 16, steps_per_s=summary["steps_per_s"], loss=summary["loss"])
+    check(summary["updates"] == 3 and os.path.isfile(policy_path), f"train: {summary}")
+    t0 = start()
+    stats = json.loads(run_cli(["eval", "--model", policy_path, "--batch-size", "4096",
+                                "--episodes-steps", "200"]).strip().splitlines()[-1])
+    stop("eval", t0, want=200, env_steps_per_s=stats["env_steps_per_s"])
+    check(stats["steps"] == 4096 * 200 and all(np.isfinite(v) for v in stats.values()),
+          f"eval: {stats}")
+
+    # ---- sweep: the default grid, one K1 launch, bit for bit with a direct call
+    sweep_path = os.path.join(work, "sweep.json")
+    t0 = start()
+    run_cli(["sweep", "--output", sweep_path])
+    stop("sweep", t0, want=1)
+    with open(sweep_path) as f:
+        sweep = json.load(f)
+    direct = switching_probability_diagram(
+        make_device_params("stt_mram", None, dtype=torch.float32, device=dev).llgs(),
+        np.linspace(-4e6, 0.0, 16), np.linspace(1e-10, 2e-9, 16), n_ensemble=64,
+        temperature=300.0, seed=0)
+    p_direct = direct["p_switch"].cpu().numpy()
+    check(sweep["p_switch"] == np.where(np.isfinite(p_direct), p_direct.astype(object),
+                                        None).tolist()
+          and sweep["failed_fraction"] == direct["failed_fraction"].cpu().numpy().tolist(),
+          "the CLI sweep differs from a direct switching_probability_diagram call")
+
+    # ---- the serving endpoint on the card (build/chip_smoke.json written)
+    ep = ServingEndpoint(host="127.0.0.1", port=0, refresh_interval=0.5)
+    t0 = time.perf_counter()
+    ep.start()  # the first refresh runs here, on this thread
+    first_refresh_ms = (time.perf_counter() - t0) * 1e3
+    t0 = start()
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{ep.port}{path}", timeout=60) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    try:
+        code, body = get("/healthz")
+        check(code == 200 and json.loads(body)["status"] == "HEALTHY", f"/healthz {code} {body}")
+        code, body = get("/readiness")
+        ready = json.loads(body)
+        check(code == 200 and ready["production_ready"]
+              and ready["checks"]["performance_evidence"]["card"] == RECORD["card"],
+              f"/readiness {code} {body[:2000]}")
+        code, body = get("/metrics")
+        check(code == 200 and b"spintorque_health_ok 1" in body, f"/metrics {code} {body}")
+        code, body = get("/info")
+        check(code == 200 and json.loads(body)["device"] == kind, f"/info {code} {body}")
+        check(get("/no-such-path")[0] == 404, "an unknown path did not give 404")
+        # Two refreshes end on the refresh thread: the second began after
+        # the counters' reset, so its launches are the refresh thread's.
+        deadline = time.monotonic() + 300
+        for _ in range(2):
+            last = ep.state.metric("spintorque_last_refresh_unixtime")
+            while ep.state.metric("spintorque_last_refresh_unixtime") == last:
+                check(time.monotonic() < deadline, "the refresh thread did not refresh")
+                time.sleep(0.02)
+    finally:
+        ep.stop()
+    serve = stop("serve", t0, first_refresh_ms=first_refresh_ms)
+    check(serve["k1_launches"] >= 2, f"the refresh thread launched K1 {serve['k1_launches']} times")
+
+    # ---- PhysicsWorkerPool: 4096 solves from 8 threads at its defaults
+    rng = np.random.default_rng(5)
+    m0 = rng.normal(size=(4096, 3)).astype(np.float32)
+    m0 /= np.linalg.norm(m0, axis=-1, keepdims=True)
+    spans = rng.uniform(1e-10, 2e-9, 4096).astype(np.float32)
+    currents = rng.uniform(-1e11, 1e11, 4096).astype(np.float32)
+    pool_params = params_from_dict(dict(volume=1e-24), device=dev)
+    with PhysicsWorkerPool(pool_params) as ref:
+        whole = ref.solve_batch(m0, spans, currents)
+    t0 = start()
+    with PhysicsWorkerPool(pool_params) as pool:
+        futs = parallel_map(lambda i: pool.submit(m0[i], (0.0, float(spans[i])), currents[i]),
+                            range(4096), max_workers=8)
+        rows = np.stack([f.result(timeout=300) for f in futs])
+        stats = pool.get_statistics()
+    res = stop("worker_pool", t0, want=stats["batches"], batches=stats["batches"],
+               mean_batch_size=stats["mean_batch_size"])
+    check(np.array_equal(rows, whole), "coalesced solves differ from one solve_batch")
+    check(stats["submitted"] == stats["solved"] == 4096, f"pool statistics {stats}")
+
+    # ---- ParallelBenchmark and ScalableEnvironmentManager
+    t0 = start()
+    bench_out = ParallelBenchmark(pool_params, n_solves=256).run()
+    stop("parallel_benchmark", t0, **bench_out)
+    t0 = start()
+    mgr = ScalableEnvironmentManager(lambda b: SpinTorqueEnv(batch_size=b, device=dev),
+                                     initial_batch=1024, min_batch=1024, max_batch=16384,
+                                     autoscale=False)
+    chunks = [mgr.run_batch_steps(16, batch=b) for b in (1024, 4096, 16384)]
+    stop("scalable_env", t0, want=3 * 17,
+         env_steps_per_s={c["batch"]: c["env_steps_per_s"] for c in chunks})
+    check(all(np.isfinite(c["mean_reward"]) for c in chunks), f"scalable env: {chunks}")
+
+    out["seconds"] = time.perf_counter() - t_phase
+    o = out
+    print(f"shell: `python -m spintorque_tpu_torch.cli info` {o['info_subprocess']['ms']:.0f} ms "
+          f"(names {kind}); benchmark B=4096 {o['benchmark']['env_steps_per_s']:.0f} "
+          f"env-steps/s, K1 {o['benchmark']['k1_launches']} in {steps} steps (main path "
+          f"{main_rate:.0f}); train 3 updates {o['train']['ms']:.0f} ms, "
+          f"{o['train']['steps_per_s']:.0f} train env-steps/s, K1 {o['train']['k1_launches']}; "
+          f"eval --model 200 steps {o['eval']['env_steps_per_s']:.0f} env-steps/s, K1 "
+          f"{o['eval']['k1_launches']}; sweep 16x16x64 {o['sweep']['ms']:.0f} ms, K1 1, the "
+          f"direct call's bits  [{smi}]")
+    print(f"shell: serving endpoint first refresh {first_refresh_ms:.0f} ms, K1 "
+          f"{serve['k1_launches']} from the refresh thread; worker pool 4096 solves from 8 "
+          f"threads {res['ms']:.0f} ms in {res['batches']} K1 launches (mean batch "
+          f"{res['mean_batch_size']:.1f}), solve_batch's bits; ParallelBenchmark 256 solves "
+          f"batched {bench_out['batched_s'] * 1e3:.2f} ms, serial estimate "
+          f"{bench_out['serial_estimate_s'] * 1e3:.1f} ms, coalesced "
+          f"{bench_out['coalesced_queue_s'] * 1e3:.1f} ms; scalable env env-steps/s "
+          f"{ {b: round(r) for b, r in o['scalable_env']['env_steps_per_s'].items()} }; "
+          f"shell phase {out['seconds']:.1f} s  [{smi}]")
     return out
 
 
@@ -1641,12 +1874,19 @@ def main():
     RECORD["analysis"] = analysis_phase(dev, smi)
     solver_launches = RECORD["analysis"]["solver"]["launches"][0]
 
+    # ------------------------------------ 16. the command line and serving
+    write_record()  # the serving endpoint's readiness evidence
+    RECORD["shell"] = shell_phase(dev, smi, rates[len(rates) // 2])
+    shell_launches = {k: v["k1_launches"] for k, v in RECORD["shell"].items()
+                      if isinstance(v, dict)}
+
     pulse = "spintorque_tpu_torch/csrc/pulse_integrator.cu"
     kernels = [
         dict(name="llgs_pulse", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:283",
-             launches=launches["llgs_pulse"] + solver_launches,
-             launches_by_path=dict(env=launches["llgs_pulse"], solver=solver_launches),
+             launches=launches["llgs_pulse"] + solver_launches + sum(shell_launches.values()),
+             launches_by_path=dict(env=launches["llgs_pulse"], solver=solver_launches,
+                                   **{f"shell_{k}": v for k, v in shell_launches.items()}),
              max_abs_err=max(det_err, thermal_err, t_main["max_abs_err"],
                              *(r["max_abs_err"] for r in RECORD["analysis"]["solver"]["solves"])),
              ms=t_main["ms"], plain_ms=t_main["plain_ms"], bound_ms=t_main["bound_ms"],
@@ -1679,10 +1919,7 @@ def main():
              library_ms=None, chain_floor_ms=None),
     ]
     RECORD["kernels"] = kernels
-    out_dir = os.path.join(ROOT, "build")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump(RECORD, f, indent=1)
+    write_record()
 
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

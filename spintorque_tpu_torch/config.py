@@ -6,7 +6,7 @@ SPIN_TORQUE_* environment variables, validation and module-global
 accessors. The fields are the JAX package's, unchanged; ``ComputeConfig``'s
 mesh fields describe a ``parallel.make_mesh``. ``ConfigManager.make_env``
 builds the port's ``SpinTorqueEnv``, on the card unless the caller asks
-for the CPU.
+for the CPU, or on a mesh.
 """
 
 from __future__ import annotations
@@ -213,9 +213,11 @@ class ConfigManager:
 
     # ---- env/trainer construction from config ----
 
-    def make_env(self, device=None):
+    def make_env(self, device=None, mesh=None):
         """The configured ``SpinTorqueEnv`` on ``device`` ("cuda" unless the
-        caller asks for "cpu")."""
+        caller asks for "cpu"), or sharded over ``mesh`` (a
+        ``parallel.Mesh``: the batch size is then the global one, and the
+        env runs on the mesh's device)."""
         from .envs import SpinTorqueEnv, SpinTorqueEnvConfig
 
         c = self.config
@@ -242,6 +244,7 @@ class ConfigManager:
             batch_size=c.environment.batch_size,
             config=cfg,
             device=device,
+            mesh=mesh,
         )
 
 

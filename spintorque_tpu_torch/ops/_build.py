@@ -27,6 +27,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -121,20 +122,35 @@ def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
 
 
 _LIBRARY: Optional[KernelLibrary] = None
+# Held by the first build and load, and by the probe of
+# ``ops.cuda_integrator.cuda_kernel_available``: threads of one process
+# that reach the first launch together (a serving refresh thread and the
+# main thread, a worker pool's drainer and its caller) build once.
+BUILD_LOCK = threading.RLock()
 
 
 def load_library() -> KernelLibrary:
-    """Build the library if needed (once per source digest) and load it."""
-    global _LIBRARY
+    """Build the library if needed (once per source digest) and load it.
+    Thread-safe: concurrent first calls build once and share the result."""
     if _LIBRARY is not None:
         return _LIBRARY
+    with BUILD_LOCK:
+        if _LIBRARY is None:
+            _load_library()
+        return _LIBRARY
+
+
+def _load_library() -> None:
+    global _LIBRARY
     out = BUILD_DIR / f"libspintorque_kernels_{source_digest()}.so"
     log_path = out.with_suffix(".log")
     seconds = 0.0
     if not out.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = find_nvcc()
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # Named by process and thread: another process may build the same
+        # digest into the same directory at the same time.
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         sources = [p for p in _sources() if p.suffix == ".cu"]
         objects = [tmp.with_suffix(f".{p.stem}.o") for p in sources]
         t0 = time.perf_counter()
@@ -156,7 +172,6 @@ def load_library() -> KernelLibrary:
     lib = ctypes.CDLL(str(out))
     _bind(lib)
     _LIBRARY = KernelLibrary(lib, out, seconds, log)
-    return _LIBRARY
 
 
 _KERNEL_FNS: Dict[str, object] = {}

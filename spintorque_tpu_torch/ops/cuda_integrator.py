@@ -30,6 +30,7 @@ priced at measured op latencies. The wrappers launch through
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -57,13 +58,21 @@ _METHODS = {"euler": 0, "heun": 1, "rk4": 2}
 
 
 class LaunchCounter:
-    """Counts the launches of one kernel (a plain integer)."""
+    """Counts the launches of one kernel: ``count``, a plain integer that
+    ``add`` raises under a lock, since kernels launch from several threads
+    of a process (a serving refresh thread, a worker pool's drainer)."""
 
     def __init__(self) -> None:
         self.count = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
 
     def reset(self) -> None:
-        self.count = 0
+        with self._lock:
+            self.count = 0
 
 
 PULSE_LAUNCHES = LaunchCounter()  # K1
@@ -213,19 +222,24 @@ _PROBE_PASSED = False
 def cuda_kernel_available() -> bool:
     """False without a CUDA device. Otherwise builds the kernel library
     (once), launches the probe kernel once, checks its result and caches
-    True; raises when the build or the probe fails."""
+    True; raises when the build or the probe fails. Thread-safe: threads
+    that call it together build and probe once (under
+    ``_build.BUILD_LOCK``)."""
     global _PROBE_PASSED
     if not torch.cuda.is_available():
         return False
     if _PROBE_PASSED:
         return True
-    _build.load_library()
-    x = torch.arange(8 * 128, dtype=torch.float32, device="cuda")
-    y = probe_add_one(x)
-    torch.cuda.synchronize()
-    if not torch.equal(y, probe_add_one_plain(x)):
-        raise RuntimeError("CUDA probe kernel returned a wrong result")
-    _PROBE_PASSED = True
+    with _build.BUILD_LOCK:
+        if _PROBE_PASSED:
+            return True
+        _build.load_library()
+        x = torch.arange(8 * 128, dtype=torch.float32, device="cuda")
+        y = probe_add_one(x)
+        torch.cuda.synchronize()
+        if not torch.equal(y, probe_add_one_plain(x)):
+            raise RuntimeError("CUDA probe kernel returned a wrong result")
+        _PROBE_PASSED = True
     return True
 
 
@@ -253,7 +267,7 @@ def probe_add_one(x: Tensor) -> Tensor:
                        y.data_ptr(), x.numel())
     if rc != 0:
         raise RuntimeError(f"probe kernel launch failed: cudaError {rc}")
-    PROBE_LAUNCHES.count += 1
+    PROBE_LAUNCHES.add()
     return y
 
 
@@ -396,7 +410,7 @@ def launch_pulse(
     if rc != 0:
         raise RuntimeError(f"pulse kernel launch failed: cudaError {rc}")
     if sharded:
-        PULSE_SHARDED_LAUNCHES.count += 1
+        PULSE_SHARDED_LAUNCHES.add()
     else:
-        (PULSE_BF16_LAUNCHES if config.bf16_rhs else PULSE_LAUNCHES).count += 1
+        (PULSE_BF16_LAUNCHES if config.bf16_rhs else PULSE_LAUNCHES).add()
     return PulseResult(m=(mx, my, mz), n_substeps=n, dt=dt, failed=failed)

@@ -112,7 +112,7 @@ def op_chain(x: Tensor, op: str, steps: int, block: int = LATENCY_THREADS) -> Te
                        y.data_ptr(), x.numel(), _OP_INDEX[op], steps, block)
     if rc != 0:
         raise RuntimeError(f"op chain kernel launch failed: cudaError {rc}")
-    OP_CHAIN_LAUNCHES.count += 1
+    OP_CHAIN_LAUNCHES.add()
     return y
 
 

@@ -105,7 +105,7 @@ class PPOTrainer:
         if mesh is not None and mesh.shape["model"] > 1:
             raise NotImplementedError(
                 "a 'model' mesh axis (the JAX package's tensor-parallel policy) is not "
-                "ported yet; see ROADMAP.md Queue 1 item 8"
+                "ported yet; see ROADMAP.md Queue 1 item 3 (the 'model' mesh axis)"
             )
         self.env = env
         self.config = config

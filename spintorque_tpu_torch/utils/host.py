@@ -1,5 +1,5 @@
-"""Reading an env step's outputs back to the host in one wait, and the
-seeds of a host loop's resets."""
+"""Reading an env step's outputs back to the host in one wait, the seeds
+of a host loop's resets, and tensors as host arrays for host-side code."""
 
 from __future__ import annotations
 
@@ -47,3 +47,12 @@ def to_host(tree: Any) -> Any:
     for device in cards:
         torch.cuda.synchronize(device)
     return _map(lambda x: x.numpy() if isinstance(x, torch.Tensor) else x, copied)
+
+
+def as_numpy(x: Any) -> Any:
+    """``x`` as a host value: a tensor (on any device) as a numpy array,
+    anything else as it is. Host-side checks and plots call it on their
+    inputs, so that they take tensors from the card."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return x

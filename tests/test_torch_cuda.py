@@ -306,3 +306,72 @@ def test_env_states_are_pure_and_resume_on_the_card(cuda, tmp_path):
         assert torch.equal(a.m, x.m) and torch.equal(a.target, x.target)
     for x in (tb, tc):
         assert torch.equal(ta.obs, x.obs) and torch.equal(ta.reward, x.reward)
+
+
+def test_first_probe_from_threads_probes_once(cuda):
+    """Threads that reach the first launch together (a serving refresh
+    thread and the main thread) probe once, under the build lock, and all
+    see True."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    ci.forget_probe()
+    ci.PROBE_LAUNCHES.reset()
+    barrier = threading.Barrier(8)
+
+    def probe(_):
+        barrier.wait()
+        return ci.cuda_kernel_available()
+
+    with ThreadPoolExecutor(8) as ex:
+        assert list(ex.map(probe, range(8))) == [True] * 8
+    assert ci.PROBE_LAUNCHES.count == 1
+
+
+def test_worker_pool_coalesces_on_the_card(cuda):
+    """Solves submitted from 8 threads run as K1 launches on the pool's
+    drainer thread; each result equals its row of one solve_batch bit for
+    bit."""
+    import numpy as np
+
+    from spintorque_tpu_torch.physics.solver import params_from_dict
+    from spintorque_tpu_torch.utils import PhysicsWorkerPool, parallel_map
+
+    rng = np.random.default_rng(0)
+    m0 = rng.normal(size=(512, 3)).astype(np.float32)
+    spans = rng.uniform(1e-11, 1e-10, 512).astype(np.float32)
+    currents = rng.uniform(-1e11, 1e11, 512).astype(np.float32)
+    params = params_from_dict(dict(volume=1e-24), device=cuda)
+    with PhysicsWorkerPool(params, device=cuda) as ref:
+        whole = ref.solve_batch(m0, spans, currents)
+    ci.PULSE_LAUNCHES.reset()
+    with PhysicsWorkerPool(params, max_wait_ms=5.0, device=cuda) as pool:
+        futs = parallel_map(lambda i: pool.submit(m0[i], (0.0, float(spans[i])), currents[i]),
+                            range(512))
+        rows = np.stack([f.result(timeout=120) for f in futs])
+        stats = pool.get_statistics()
+    np.testing.assert_array_equal(rows, whole)
+    assert ci.PULSE_LAUNCHES.count == stats["batches"] >= 1
+
+
+def test_serving_endpoint_checks_run_k1_from_the_refresh_thread(cuda):
+    import time
+
+    from spintorque_tpu_torch.deployment import ServingEndpoint
+
+    ep = ServingEndpoint(host="127.0.0.1", port=0, refresh_interval=0.2, device=cuda)
+    ep.start()
+    try:
+        assert ep.state.health["status"] == "HEALTHY"
+        ci.PULSE_LAUNCHES.reset()
+        # Two refreshes end after the reset: the second one began after it.
+        deadline = time.monotonic() + 120
+        for _ in range(2):
+            last = ep.state.metric("spintorque_last_refresh_unixtime")
+            while ep.state.metric("spintorque_last_refresh_unixtime") == last:
+                assert time.monotonic() < deadline
+                time.sleep(0.05)
+    finally:
+        ep.stop()
+    assert ci.PULSE_LAUNCHES.count >= 2  # the physics check and the env step
+    assert ep.state.readiness["checks"]["subsystem_health"]["passed"]

@@ -2,12 +2,17 @@
 
 No module of ``spintorque_tpu_torch`` and not ``chip_smoke.py`` imports JAX
 or the JAX package (the card's machine has neither); the port's
-``physics`` and top-level namespaces carry every name the JAX package
-exports from the modules ported so far.
+``physics``, ``deployment``, ``visualization`` and ``utils`` and top-level
+namespaces carry every name the JAX package exports from the modules
+ported so far, and every module of the shell has its JAX counterpart's
+public names.
 """
 
 import ast
+import importlib
 import pathlib
+
+import pytest
 
 import spintorque_tpu
 import spintorque_tpu.physics as jax_physics
@@ -44,3 +49,32 @@ def test_physics_exports_every_jax_name():
 def test_package_exports_the_jax_packages_names():
     missing = sorted(set(spintorque_tpu.__all__) - set(spintorque_tpu_torch.__all__))
     assert not missing
+
+
+@pytest.mark.parametrize("package", ["deployment", "visualization", "utils"])
+def test_subpackage_exports_every_jax_name(package):
+    ours = importlib.import_module(f"spintorque_tpu_torch.{package}")
+    theirs = importlib.import_module(f"spintorque_tpu.{package}")
+    assert not sorted(set(theirs.__all__) - set(ours.__all__))
+    for name in theirs.__all__:
+        assert hasattr(ours, name), name
+
+
+SHELL_MODULES = [
+    "cli", "deployment.compliance", "deployment.manager", "deployment.server",
+    "utils.error_handling", "utils.validation", "utils.security", "utils.cache",
+    "utils.logging_config", "utils.performance", "utils.health", "utils.concurrency",
+    "utils.scaling", "utils.scalable_environment", "visualization.plots",
+    "visualization.research_plots",
+]
+
+
+@pytest.mark.parametrize("module", SHELL_MODULES)
+def test_shell_module_has_the_jax_public_names(module):
+    ours = importlib.import_module(f"spintorque_tpu_torch.{module}")
+    theirs = importlib.import_module(f"spintorque_tpu.{module}")
+    public = getattr(theirs, "__all__", None) or [
+        n for n, v in vars(theirs).items()
+        if not n.startswith("_") and getattr(v, "__module__", None) == theirs.__name__]
+    assert public
+    assert not [n for n in public if not hasattr(ours, n)]
