@@ -35,9 +35,20 @@ output (200 steps), the default ``sweep`` (16,384 trajectories) bit for bit
 with a direct call, the serving endpoint (its health checks launch K1 from
 the refresh thread), the coalescing ``PhysicsWorkerPool`` fed 4096 solves
 from 8 threads, bit for bit with one ``solve_batch``, ``ParallelBenchmark``
-and ``ScalableEnvironmentManager`` at B=1024/4096/16384. Each path's launch
-counts are set to 0 just before it and read just after. Any failed check
-raises and exits non-zero.
+and ``ScalableEnvironmentManager`` at B=1024/4096/16384. Then the 'model'
+mesh axis (``model_axis_phase``): two gloo ranks sharing the card on a
+(data 1, model 2) mesh train ``PPOConfig()`` at global B=4096 for two
+steps, each rank holding its half of the hidden layers; their env states
+and gathered parameters equal bit for bit, step 1's update against a
+world-size-1 trainer's on the card. Last, the classical research tier
+(``research_phase``): the cross-entropy, grid and annealing searches of the
+switching pulse (one K1 launch per population), the switching objective
+against its plain version on the CPU, the standard benchmark suite,
+``compare_policies`` at B=4096, the validation checks in float32, the
+optimal-control baseline (the plain loop under autograd: no kernel, its
+loss and gradient against the CPU) and the comparative analysis's default
+controllers one by one. Each path's launch counts are set to 0 just before
+it and read just after. Any failed check raises and exits non-zero.
 
 Beside the kernels' checks it holds the pulse kernel's design: ptxas's
 report shows no spill in any pulse_kernel instance; div6, the kernel's
@@ -103,6 +114,17 @@ Tolerances:
   * the shell: the CLI sweep against a direct call with the same
     arguments, and the worker pool's coalesced solves against one
     ``solve_batch``, bit for bit (each env integrates on its own);
+  * the 'model' axis: the two ranks' env states and gathered parameters
+    bit for bit; step 1's parameter update (gathered parameters less the
+    initial ones, which equal one process's bit for bit) within 1% in L2
+    norm of a world-size-1 trainer's from the same seed: the row-parallel
+    sums round otherwise, and Adam's first step moves each parameter by
+    about the learning rate whatever its gradient's size;
+  * the research tier: the switching objective on the card against its
+    plain version on the CPU at rtol = atol = 2e-6; the optimal-control
+    loss and gradient on the card against the CPU at 1e-4 and 1e-3 of
+    their largest magnitude (float32 physics through 600 substeps under
+    autograd, eager on both);
   * the functional envs of the Gymnasium ids, card vs CPU from the same
     state and actions, float32, thermal off: SpinTorque-v0 10 steps at
     1e-4 on obs and reward (as the one-step check); the array env one step
@@ -1059,6 +1081,380 @@ def shell_phase(dev, smi, main_rate):
     return out
 
 
+def model_axis_rank(batch, seed):
+    """One rank of the 'model' axis phase: a (data 1, model 2) mesh, the
+    PPO trainer at ``PPOConfig()`` on the global batch, two train steps from
+    ``seed``, each its rollout and its update timed by CUDA events and the
+    step by the host clock; launch and all-reduce counts read around each
+    phase."""
+    import torch
+
+    from spintorque_tpu_torch.envs import SpinTorqueEnv
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+    from spintorque_tpu_torch.parallel import MODEL_ALL_REDUCES, make_mesh
+    from spintorque_tpu_torch.rl import PPOConfig, PPOTrainer
+
+    counters = (ci.PULSE_SHARDED_LAUNCHES, ci.PULSE_LAUNCHES, ci.PULSE_BF16_LAUNCHES)
+    mesh = make_mesh(n_data=1, n_model=2)
+    trainer = PPOTrainer(SpinTorqueEnv(batch_size=batch, mesh=mesh), PPOConfig())
+    ts = trainer.init(seed)
+    out = dict(ranks=(mesh.data_rank, mesh.model_rank), backend=mesh.backend,
+               shard=ts.network.trunks["actor"][0].weight.detach().cpu(),
+               numel=sum(p.numel() for p in ts.network.parameters()),
+               full0=ts.network.full_state_dict(), steps=[])
+    out["full0"] = {k: v.cpu() for k, v in out["full0"].items()}
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        MODEL_ALL_REDUCES.reset()
+        t0 = time.perf_counter()
+        events[0].record()
+        ts, traj = trainer.collect(ts)
+        events[1].record()
+        torch.cuda.synchronize()
+        rollout_reduces = MODEL_ALL_REDUCES.count
+        MODEL_ALL_REDUCES.reset()
+        metrics = trainer.update(ts, traj)
+        events[2].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        update_reduces = MODEL_ALL_REDUCES.count
+        out["steps"].append(dict(
+            launches=[c.count for c in counters], rollout_all_reduces=rollout_reduces,
+            update_all_reduces=update_reduces, wall_s=wall,
+            rollout_ms=events[0].elapsed_time(events[1]),
+            update_ms=events[1].elapsed_time(events[2]),
+            rate=trainer.config.rollout_steps * batch / wall,
+            metrics={k: float(v) for k, v in metrics.items()},
+            m=ts.env_state.m.cpu(), obs=ts.obs.cpu(),
+            full={k: v.cpu() for k, v in ts.network.full_state_dict().items()}))
+    return out
+
+
+def model_axis_phase(dev, smi):
+    """The 'model' mesh axis on the card: two gloo ranks sharing it (NCCL
+    takes one rank per device), a (data 1, model 2) mesh, ``PPOConfig()`` at
+    global B=4096, two train steps from one seed. Each rank must hold a
+    different half of ``actor_dense_0``, the ranks' env states and gathered
+    parameters must be equal bit for bit, and the update of step 1 (the
+    gathered parameters less the initial ones) must agree with a
+    world-size-1 trainer's on the card from the same seed to 1% in L2 norm
+    (the row-parallel sums round otherwise, and Adam's first step moves a
+    parameter by about the learning rate whatever its gradient's size)."""
+    import numpy as np
+    import torch
+
+    from spintorque_tpu_torch.envs import SpinTorqueEnv
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+    from spintorque_tpu_torch.parallel import spawn_ranks
+    from spintorque_tpu_torch.rl import PPOConfig, PPOTrainer
+
+    B, seed = 4096, 11
+    work = os.path.join(ROOT, "build")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(model_axis_rank, 2, args=(B, seed), backend="gloo", timeout=600.0,
+                        workdir=work)
+    wall = time.perf_counter() - t0
+    r0, r1 = sorted(ranks, key=lambda r: r["ranks"])
+    check([r0["ranks"], r1["ranks"]] == [(0, 0), (0, 1)] and r0["backend"] == "gloo",
+          f"mesh layout {r0['ranks']}, {r1['ranks']}, {r0['backend']}")
+    full_numel = sum(v.numel() for v in r0["full0"].values())
+    check(r0["shard"].shape == (128, 12) and not torch.equal(r0["shard"], r1["shard"])
+          and torch.equal(torch.cat([r0["shard"], r1["shard"]]),
+                          r0["full0"]["trunks.actor.0.weight"]),
+          "the ranks do not hold the two halves of actor_dense_0")
+    check(r0["numel"] == r1["numel"] < full_numel, f"{r0['numel']} of {full_numel} per rank")
+    for s0, s1 in zip(r0["steps"], r1["steps"]):
+        check(torch.equal(s0["m"], s1["m"]) and torch.equal(s0["obs"], s1["obs"]),
+              "the model ranks' env states differ")
+        check(all(torch.equal(v, s1["full"][k]) for k, v in s0["full"].items()),
+              "the model ranks' gathered parameters differ")
+        for s in (s0, s1):
+            check(s["launches"] == [16, 0, 0],
+                  f"a train step launched K5/K1/K6 {s['launches']} times, want [16, 0, 0]")
+            check(all(np.isfinite(v) for v in s["metrics"].values()), f"metrics {s['metrics']}")
+
+    # A world-size-1 trainer on the card from the same seed: step 1.
+    trainer = PPOTrainer(SpinTorqueEnv(batch_size=B, device=dev), PPOConfig())
+    ts = trainer.init(seed)
+    init = {k: v.cpu() for k, v in ts.network.state_dict().items()}
+    check(all(torch.equal(v, r0["full0"][k]) for k, v in init.items()),
+          "the gathered initial parameters differ from one process's")
+    ts, _ = trainer.train_step(ts)
+    ref = {k: v.cpu() for k, v in ts.network.state_dict().items()}
+    got = r0["steps"][0]["full"]
+    d_ref = torch.cat([(ref[k] - init[k]).reshape(-1) for k in ref])
+    d_got = torch.cat([(got[k] - init[k]).reshape(-1) for k in ref])
+    rel = float(torch.linalg.vector_norm(d_got - d_ref) / torch.linalg.vector_norm(d_ref))
+    max_abs = float((d_got - d_ref).abs().max())
+    check(rel <= 1e-2, f"step 1's update differs from one process's by {rel:.3e} in L2")
+    s = r0["steps"][1]
+    cfg = PPOConfig()
+    per_mb = (s["update_all_reduces"] - 2) / (cfg.num_epochs * cfg.num_minibatches)
+    out = dict(wall_s=wall, rate=s["rate"], rollout_ms=s["rollout_ms"],
+               update_ms=s["update_ms"], k5_launches_per_rank=[x["launches"][0] for x in
+                                                               r0["steps"]],
+               rollout_all_reduces=s["rollout_all_reduces"],
+               update_all_reduces=s["update_all_reduces"], all_reduces_per_minibatch=per_mb,
+               step1_rel_l2=rel, step1_max_abs=max_abs,
+               rates=[x["rate"] for x in r0["steps"]],
+               launches=sum(x["launches"][0] for r in (r0, r1) for x in r["steps"]))
+    print(f"model axis, two gloo ranks sharing one card, mesh (data 1, model 2), PPOConfig(), "
+          f"global B={B}: each rank holds {r0['numel']} of {full_numel} parameters (its half "
+          f"of actor_dense_0); env states and gathered parameters equal bit for bit on both "
+          f"ranks; step 1's update vs one process's: {rel:.3e} relative L2, max abs "
+          f"{max_abs:.3e}; step 2: {s['rate']:.0f} train env-steps/s, rollout "
+          f"{s['rollout_ms']:.1f} ms, update {s['update_ms']:.1f} ms (step 1: "
+          f"{r0['steps'][0]['rate']:.0f}); K5 (K1 on the whole batch) "
+          f"{out['k5_launches_per_rank']} per rank; 'model' all-reduces: rollout {s['rollout_all_reduces']}, update "
+          f"{s['update_all_reduces']} ({per_mb:.0f} per minibatch step); {wall:.1f} s with "
+          f"spawning  [{smi}]")
+    return out
+
+
+RESEARCH_DEVICE = dict(saturation_magnetization=800e3, damping=0.01, uniaxial_anisotropy=1.2e6,
+                       volume=1e-23, polarization=0.7, easy_axis=[0.0, 0.0, 1.0])
+# The JAX package's optimal-control test device (tests/unit/test_research_tier.py).
+CONTROL_DEVICE = dict(volume=1e-24, saturation_magnetization=800e3, damping=0.05,
+                      uniaxial_anisotropy=4e5, polarization=0.7, easy_axis=[0.0, 0.0, 1.0])
+
+
+def research_phase(dev, smi):
+    """The classical research tier on the card, each item with its K1
+    launches counted from 0: ``optimize_switching_pulse`` by cross-entropy
+    at its defaults (population 1024, 20 generations: 20 launches), and in
+    the smooth current regime a 16 x 16 grid search (1) and simulated
+    annealing of 256 chains x 100 (101); ``switching_objective`` on one
+    population of that regime (pulses up to 2e-10 s) against its plain
+    version on the CPU (2e-6);
+    the standard benchmark suite; ``compare_policies`` at
+    B=4096, ``ResearchValidationFramework`` in float32; one iteration of
+    the optimal-control baseline at the JAX test's shape (3 segments of
+    2e-10 s, 256 max substeps, 8 restarts: the plain loop under autograd,
+    no kernel), its loss and gradient at one theta against the CPU (1e-4 of
+    the largest loss, 1e-3 of the largest gradient component), its ms and
+    CUDA kernels; and the comparative analysis's default controllers one
+    by one on one task, the optimal-control one at 1 iteration (an
+    iteration is ~9 s of eager launches; its 60 at 16 restarts would be
+    minutes)."""
+    import numpy as np
+    import torch
+
+    from spintorque_tpu_torch.envs import SpinTorqueEnv
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+    from spintorque_tpu_torch.parallel import random_policy
+    from spintorque_tpu_torch.physics import params_from_dict
+    from spintorque_tpu_torch.research import (
+        ComparativeAnalysis,
+        OptimalControlBaseline,
+        ResearchValidationFramework,
+        compare_policies,
+        create_standard_benchmark_suite,
+        grid_search,
+        optimize_switching_pulse,
+        simulated_annealing,
+        switching_objective,
+    )
+
+    out = {}
+    t_phase = time.perf_counter()
+    counters = (ci.PULSE_LAUNCHES, ci.PULSE_BF16_LAUNCHES, ci.PULSE_SHARDED_LAUNCHES)
+
+    def start():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        return time.perf_counter()
+
+    def stop(name, t0, want=None, **extra):
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        k1, k6, k5 = (c.count for c in counters)
+        check(k6 == 0 and k5 == 0, f"{name} launched K6 {k6} / K5 {k5} times")
+        if want is not None:
+            check(k1 == want, f"{name} launched K1 {k1} times, want {want}")
+        out[name] = dict(ms=ms, k1_launches=k1, **extra)
+        return out[name]
+
+    p = params_from_dict(RESEARCH_DEVICE, device=dev)
+    # optimize_switching_pulse's default space (+-2e6 A/m^2) is flat for
+    # this device: every pulse blows up in float32 and normalizes to +z,
+    # in the JAX package too. The grid, the annealing and the card-vs-CPU
+    # check search the smooth regime (~1e-5 A/m^2), where pulses switch or
+    # not.
+    space = {"current": (-2e-5, 2e-5), "duration": (1e-11, 2e-9)}
+    objective = switching_objective(p)
+
+    # ---- the optimizers: one K1 launch per objective call
+    t0 = start()
+    cem = optimize_switching_pulse(p)
+    stop("cross_entropy", t0, want=20, best_value=cem.best_value, best=cem.best_params)
+    t0 = start()
+    grid = grid_search(objective, space, points_per_dim=16, device=dev)
+    stop("grid_search", t0, want=1, best_value=grid.best_value)
+    t0 = start()
+    sa = simulated_annealing(objective, space, chains=256, iterations=100, device=dev)
+    stop("simulated_annealing", t0, want=101, best_value=sa.best_value)
+    for name, res in (("cross_entropy", cem), ("grid_search", grid), ("simulated_annealing", sa)):
+        check(np.isfinite(res.best_value)
+              and all(np.isfinite(v) for v in res.best_params.values()), f"{name}: {res}")
+
+    # ---- the objective on one population: K1 against the plain version on
+    # the CPU, over pulses of up to 2e-10 s (200 substeps), as the CPU tests
+    # hold the plain version to JAX: two machines' float32 rounding drifts
+    # apart over long switching pulses.
+    g = torch.Generator().manual_seed(3)
+    cand = {"current": -2e-5 + 4e-5 * torch.rand(1024, generator=g, dtype=torch.float64),
+            "duration": 1e-11 + (2e-10 - 1e-11) * torch.rand(1024, generator=g,
+                                                              dtype=torch.float64)}
+    t0 = start()
+    card, objective_ms = timed(lambda: objective({k: v.to(dev) for k, v in cand.items()}))
+    stop("objective", t0, want=1, switched=float((card < 0.5).float().mean()))
+    check(0.0 < out["objective"]["switched"] < 1.0,
+          f"a population where {out['objective']['switched']} of the pulses switch")
+    cpu_objective = switching_objective(params_from_dict(RESEARCH_DEVICE, device="cpu"))
+    t0 = time.perf_counter()
+    plain = cpu_objective(cand)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    objective_err = max_diff(card.cpu(), plain)
+    torch.testing.assert_close(card.cpu(), plain, rtol=2e-6, atol=2e-6,
+                               msg=lambda m: f"switching_objective card vs CPU: {m}")
+    out["objective"].update(max_abs_err=objective_err, k1_ms=objective_ms, plain_ms=plain_ms)
+
+    # ---- the standard benchmark suite and the policy comparison
+    t0 = start()
+    suite = create_standard_benchmark_suite().run()
+    stop("suite", t0, want=4 + 2 * 4 * 32,
+         **{k: v["value"] for k, v in suite["results"].items()})
+    check(suite["backend"] == "cuda" and suite["card"] == smi, f"suite report {suite['card']}")
+    env = SpinTorqueEnv(batch_size=4096, device=dev)
+
+    def zero_policy(params, obs, generator):
+        return torch.zeros((obs.shape[0], 2), dtype=obs.dtype, device=obs.device)
+
+    t0 = start()
+    cmp = compare_policies(env, {"random": random_policy(env), "zero": zero_policy}, horizon=100)
+    stop("compare_policies", t0, want=200,
+         mean_return={k: v["mean_return"] for k, v in cmp["policies"].items()},
+         p_value=cmp["significance"]["random_vs_zero"]["p_value"])
+    check(all(np.isfinite(v["mean_return"]) for v in cmp["policies"].values()), f"{cmp}")
+
+    # ---- the validation checks in float32 through K1
+    t0 = start()
+    report = ResearchValidationFramework(device=dev).run_all()
+    checks = {c["name"]: c for c in report["checks"]}
+    validation = stop("validation", t0, checks=checks)
+    order = checks["convergence_order"]
+    check(all(c["passed"] for n, c in checks.items() if n != "convergence_order"),
+          f"validation checks failed on the card: {checks}")
+    check("error" not in order and np.isfinite(order["measured_order"]),
+          f"the convergence-order check did not run: {order}")
+    # norm 1, determinism 2 env steps, energy 1, convergence order 3, equilibrium 1
+    check(validation["k1_launches"] == 8, f"validation launched K1 {validation['k1_launches']}")
+
+    # ---- optimal control: the plain loop under autograd (no kernel)
+    def control(device, max_substeps=256):
+        return OptimalControlBaseline(params_from_dict(CONTROL_DEVICE, device=device),
+                                      n_segments=3, segment_duration=2e-10,
+                                      max_substeps=max_substeps)
+
+    m0 = np.array([0.1, 0.0, 0.995], np.float32)
+    m0 /= np.linalg.norm(m0)
+    tgt = np.array([0.0, 0.0, -1.0], np.float32)
+    theta = torch.tensor([[0.3, -0.8, 1.1]] * 8, dtype=torch.float64)
+
+    def iteration(model, th):  # one Adam iteration's forward and backward
+        th = th.clone().requires_grad_(True)
+        losses = model.loss(model.max_current * torch.tanh(th), m0, tgt)
+        (grad,) = torch.autograd.grad(losses.sum(), th)
+        return losses.detach(), grad
+
+    # The loop issues the same kernels every substep: profile iterations of
+    # 10 and 20 substeps a segment and extrapolate the line to the 200 of
+    # the real one (the profiler takes minutes over ~5e5 kernels).
+    counts = {n: kernels_per_call(lambda n=n: iteration(control(dev, n), theta.to(dev)))
+              for n in (10, 20)}
+    per_substep = (counts[20][0] - counts[10][0]) / 10
+    kernels = counts[10][0] + 190 * per_substep
+    t0 = start()
+    (loss, grad), iter_ms = timed(lambda: iteration(control(dev), theta.to(dev)))
+    stop("control_iteration", t0, want=0)
+    loss_cpu, grad_cpu = iteration(control("cpu"), theta)
+    loss_err = float((loss.cpu() - loss_cpu).abs().max() / loss_cpu.abs().max())
+    grad_err = float((grad.cpu() - grad_cpu).abs().max() / grad_cpu.abs().max())
+    check(loss_err <= 1e-4 and grad_err <= 1e-3,
+          f"optimal-control loss / gradient card vs CPU: {loss_err:.3e} / {grad_err:.3e}")
+    check(bool(torch.isfinite(grad).all()), "a non-finite optimal-control gradient")
+    out["control_iteration"].update(kernels=kernels, kernels_profiled=counts,
+                                    loss_rel_err=loss_err, grad_rel_err=grad_err)
+
+    # ---- the comparative analysis's default controllers, one by one
+    analysis = ComparativeAnalysis(params_from_dict(
+        dict(CONTROL_DEVICE, damping=0.01, uniaxial_anisotropy=8e5), device=dev))
+    analysis.register_default_controllers()
+
+    def optimal_control(task):  # the default controller at 1 of its 60 iterations
+        res = OptimalControlBaseline(analysis.params, n_segments=3).optimize(
+            *task, n_restarts=16, iterations=1)
+        # The draw optimize starts from (the card's generator, seed 0), kept
+        # so that a non-finite restart can be replayed on the CPU.
+        theta0 = 0.5 * torch.randn((16, 3), dtype=torch.float64, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(0))
+        return {"alignment": res["alignment"], "energy_J": res["energy_J"],
+                "loss": res["loss"], "theta0": theta0.cpu().tolist()}
+
+    analysis.register("optimal_control", optimal_control)
+    task = analysis.default_tasks(1)[0]
+    controllers = {}
+    for name, controller in analysis.controllers.items():
+        t0 = start()
+        row = controller(task)
+        controllers[name] = stop(f"controller_{name}", t0, **row)
+        check(np.isfinite(row["alignment"]), f"controller {name}: {row}")
+
+    launches = {
+        "research_objective": sum(out[k]["k1_launches"] for k in (
+            "cross_entropy", "grid_search", "simulated_annealing", "objective",
+            "controller_single_pulse_grid")),
+        "research_suite": out["suite"]["k1_launches"],
+        "research_validation": out["validation"]["k1_launches"],
+        "compare_policies": out["compare_policies"]["k1_launches"],
+    }
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    o = out
+    print(f"research: cross-entropy (1024 x 20) best {cem.best_value:.4g} in "
+          f"{o['cross_entropy']['ms']:.0f} ms, K1 20; grid 16 x 16 best {grid.best_value:.4g} in "
+          f"{o['grid_search']['ms']:.0f} ms, K1 1; annealing 256 x 100 best {sa.best_value:.4g} "
+          f"in {o['simulated_annealing']['ms']:.0f} ms, K1 101; switching_objective B=1024 "
+          f"({o['objective']['switched']:.3f} of the pulses switch) K1 "
+          f"{objective_ms:.3f} ms vs CPU plain {plain_ms:.0f} ms, max_abs_err "
+          f"{objective_err:.3e}  [{smi}]")
+    res = suite["results"]
+    print(f"research: benchmark suite {res['solver_4096x1000']['value']:.0f} pulses/s "
+          f"(B=4096 x 1000 rk4), env B=4096 {res['env_4096_thermal']['value']:.0f} thermal, "
+          f"{res['env_4096_det']['value']:.0f} deterministic env-steps/s, K1 "
+          f"{o['suite']['k1_launches']}; compare_policies B=4096 x 100 steps mean return "
+          f"{ {k: round(v, 3) for k, v in o['compare_policies']['mean_return'].items()} }, K1 "
+          f"{o['compare_policies']['k1_launches']}; validation (float32, K1 "
+          f"{validation['k1_launches']}): "
+          + ", ".join(f"{n} {'pass' if c['passed'] else 'FAIL'}" for n, c in checks.items())
+          + f"; measured convergence order {order['measured_order']:.3f} (coarse error "
+          f"{order['coarse_error']:.3e}, fine {order['fine_error']:.3e})  [{smi}]")
+    print(f"research: optimal control (3 x 2e-10 s, 256 max substeps, 8 restarts): "
+          f"{iter_ms:.0f} ms an iteration (forward and backward), ~{kernels:.0f} CUDA kernels "
+          f"(profiled at 10 / 20 substeps a segment: {counts[10][0]} / {counts[20][0]} kernels, "
+          f"{counts[10][1]:.1f} / {counts[20][1]:.1f} ms on the device), no K1; loss / gradient "
+          f"vs CPU {loss_err:.1e} / {grad_err:.1e}; default controllers on one task: "
+          + ", ".join(f"{n} alignment {c['alignment']:.4f} in {c['ms']:.0f} ms"
+                      for n, c in controllers.items())
+          + f" (optimal control at 1 iteration of 60); research phase {out['seconds']:.1f} s"
+          f"  [{smi}]")
+    return out
+
+
 def main():
     import torch
 
@@ -1880,15 +2276,25 @@ def main():
     shell_launches = {k: v["k1_launches"] for k, v in RECORD["shell"].items()
                       if isinstance(v, dict)}
 
+    # -------------------------------------- 17. the 'model' mesh axis
+    RECORD["model_axis"] = model_axis_phase(dev, smi)
+
+    # ------------------------------------------- 18. the research tier
+    RECORD["research"] = research_phase(dev, smi)
+    research_launches = RECORD["research"]["launches"]
+
     pulse = "spintorque_tpu_torch/csrc/pulse_integrator.cu"
     kernels = [
         dict(name="llgs_pulse", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:283",
-             launches=launches["llgs_pulse"] + solver_launches + sum(shell_launches.values()),
+             launches=(launches["llgs_pulse"] + solver_launches + sum(shell_launches.values())
+                       + sum(research_launches.values())),
              launches_by_path=dict(env=launches["llgs_pulse"], solver=solver_launches,
-                                   **{f"shell_{k}": v for k, v in shell_launches.items()}),
+                                   **{f"shell_{k}": v for k, v in shell_launches.items()},
+                                   **research_launches),
              max_abs_err=max(det_err, thermal_err, t_main["max_abs_err"],
-                             *(r["max_abs_err"] for r in RECORD["analysis"]["solver"]["solves"])),
+                             *(r["max_abs_err"] for r in RECORD["analysis"]["solver"]["solves"]),
+                             RECORD["research"]["objective"]["max_abs_err"]),
              ms=t_main["ms"], plain_ms=t_main["plain_ms"], bound_ms=t_main["bound_ms"],
              bound_by=t_main["bound_by"], library_ms=None, chain_floor_ms=floors["K1"],
              deterministic_ms=t_det["ms"],
@@ -1909,7 +2315,10 @@ def main():
              device_ms=probe_device_ms, library_device_ms=add_device_ms),
         dict(name="llgs_pulse_sharded", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:720",
-             launches=dp_launches, max_abs_err=k5_err,
+             launches=dp_launches + RECORD["model_axis"]["launches"],
+             launches_by_path=dict(data_parallel=dp_launches,
+                                   model_axis=RECORD["model_axis"]["launches"]),
+             max_abs_err=k5_err,
              ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound[0], bound_by=k5_bound[1],
              library_ms=None, chain_floor_ms=floors["K5"]),
         dict(name="op_chain", route="cuda", source="spintorque_tpu_torch/csrc/op_chain.cu",

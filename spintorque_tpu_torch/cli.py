@@ -135,11 +135,15 @@ def cmd_train(args) -> int:
     )
     print(json.dumps({k: v for k, v in summary.items()}, default=float))
 
-    if args.output and _rank() == 0:  # every rank holds the same parameters
+    if args.output:
         from .utils.checkpoint import save_params
 
-        save_params(args.output, ts.network)
-        print(f"saved policy parameters to {args.output}")
+        # Every rank joins the gather of a tensor-parallel network's
+        # shards; then global rank 0 writes the whole parameters.
+        state = ts.network.full_state_dict()
+        if _rank() == 0:
+            save_params(args.output, state)
+            print(f"saved policy parameters to {args.output}")
     return 0
 
 

@@ -134,36 +134,43 @@ def skyrmion_state_to_numpy(state: SkyrmionEnvState) -> Dict[str, Any]:
 
 
 def _actor_critic_layers(module: ActorCritic):
-    """(flax layer name, nn.Linear) pairs of an ActorCritic."""
+    """(flax layer name, ``state_dict`` prefix) pairs of an ActorCritic."""
     for name, trunk in module.trunks.items():
-        for i, layer in enumerate(trunk):
-            yield f"{name}_dense_{i}", layer
+        for i in range(len(trunk)):
+            yield f"{name}_dense_{i}", f"trunks.{name}.{i}"
     head = "actor_logits" if module.discrete else "actor_mean"
-    yield head, getattr(module, head)
-    yield "critic_value", module.critic_value
+    yield head, head
+    yield "critic_value", "critic_value"
 
 
 def actor_critic_params_from_numpy(flax_params: Dict[str, Any], module: ActorCritic) -> ActorCritic:
     """Copy the flax ActorCritic's parameters (a nested dict of numpy
-    arrays) into ``module`` in place, in its dtype and on its device. A flax
-    Dense kernel is (in, out) and an nn.Linear weight (out, in), so the
-    kernel is transposed. Returns ``module``."""
+    arrays) into ``module`` in place, in its dtype and on its device; a
+    module that is tensor-parallel over its mesh's 'model' axis takes this
+    rank's shard of each. A flax Dense kernel is (in, out) and an
+    nn.Linear weight (out, in), so the kernel is transposed. Returns
+    ``module``."""
+    full = {}
+    for name, prefix in _actor_critic_layers(module):
+        full[f"{prefix}.weight"] = torch.tensor(np.asarray(flax_params[name]["kernel"]).T)
+        full[f"{prefix}.bias"] = torch.tensor(np.asarray(flax_params[name]["bias"]))
+    if not module.discrete:
+        full["log_std"] = torch.tensor(np.asarray(flax_params["log_std"]))
     with torch.no_grad():
-        for name, layer in _actor_critic_layers(module):
-            layer.weight.copy_(torch.tensor(np.asarray(flax_params[name]["kernel"]).T))
-            layer.bias.copy_(torch.tensor(np.asarray(flax_params[name]["bias"])))
-        if not module.discrete:
-            module.log_std.copy_(torch.tensor(np.asarray(flax_params["log_std"])))
+        for name, p in module.named_parameters():
+            p.copy_(module.take_shard(name, full[name]))
     return module
 
 
 def actor_critic_params_to_numpy(module: ActorCritic) -> Dict[str, Any]:
-    """The flax ActorCritic's parameter tree from ``module``."""
+    """The flax ActorCritic's parameter tree from ``module``: whole, its
+    shards gathered over 'model' on every rank (a collective of the model
+    group when the module is tensor-parallel)."""
+    full = {k: v.cpu().numpy() for k, v in module.full_state_dict().items()}
     out: Dict[str, Any] = {
-        name: {"kernel": layer.weight.detach().cpu().numpy().T.copy(),
-               "bias": layer.bias.detach().cpu().numpy()}
-        for name, layer in _actor_critic_layers(module)
+        name: {"kernel": full[f"{prefix}.weight"].T.copy(), "bias": full[f"{prefix}.bias"]}
+        for name, prefix in _actor_critic_layers(module)
     }
     if not module.discrete:
-        out["log_std"] = module.log_std.detach().cpu().numpy()
+        out["log_std"] = full["log_std"]
     return out

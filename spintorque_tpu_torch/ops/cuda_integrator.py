@@ -298,6 +298,20 @@ def _check_tensor(name: str, t, device, shape, dtype=torch.float32) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def check_no_grad(m0, span, current) -> None:
+    """Raise when any of m0's components, span or current requires a
+    gradient: the kernel has no backward, and a launch would drop the
+    graph without a word."""
+    named = (("m0", m0[0]), ("m0", m0[1]), ("m0", m0[2]), ("span", span), ("current", current))
+    wants = sorted({name for name, t in named if isinstance(t, Tensor) and t.requires_grad})
+    if wants:
+        raise RuntimeError(
+            f"the CUDA pulse kernel takes no gradient ({', '.join(wants)} requires grad); "
+            "differentiate through the plain loop instead: "
+            "physics.integrator.integrate_pulse_plain or integrate_pulse_trajectory"
+        )
+
+
 def _per_env(t: Tensor, batch: int) -> Tensor:
     """A 0-dim or (B,) coefficient as a contiguous (B,) tensor."""
     return torch.broadcast_to(t, (batch,)).contiguous()
@@ -326,7 +340,13 @@ def integrate_pulse_cuda(
     ``params.plus_z`` is None. ``env_offset`` is the global index of env 0
     in the thermal stream; a ``sharded`` launch (default: a nonzero offset)
     is K5 and counts in ``PULSE_SHARDED_LAUNCHES``.
+
+    The kernel takes no gradient: inputs that require one raise (before
+    any build or launch), and never fall back to the plain loop, which
+    does differentiate (``physics.integrator.integrate_pulse_plain`` and
+    ``integrate_pulse_trajectory``).
     """
+    check_no_grad(m0, span, current)
     mx0 = m0[0]
     if not isinstance(mx0, Tensor) or mx0.device.type != "cuda":
         raise ValueError("integrate_pulse_cuda takes CUDA tensors")
@@ -354,6 +374,7 @@ def launch_pulse(
     ``n[b]`` (int32) substeps of ``dt[b]`` (``integrate_pulse_cuda`` takes
     both from the dt law; a test may pass any counts, 0 included). The other
     arguments and the checks are ``integrate_pulse_cuda``'s."""
+    check_no_grad(m0, dt, current)
     check_config(config)
     mx0, my0, mz0 = m0
     if not isinstance(mx0, Tensor) or mx0.device.type != "cuda":

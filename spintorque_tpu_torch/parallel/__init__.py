@@ -9,11 +9,13 @@ reduced with ``pmean_metrics``.
 from . import distributed
 from .distributed import initialize, is_multihost, process_info, spawn_ranks
 from .mesh import (
+    MODEL_ALL_REDUCES,
     Mesh,
     all_reduce,
     gather_batch,
     local_batch_size,
     make_mesh,
+    model_all_reduce,
     pmean_metrics,
     resolve_device,
     shard_batch,
@@ -27,11 +29,13 @@ __all__ = [
     "is_multihost",
     "process_info",
     "spawn_ranks",
+    "MODEL_ALL_REDUCES",
     "Mesh",
     "all_reduce",
     "gather_batch",
     "local_batch_size",
     "make_mesh",
+    "model_all_reduce",
     "pmean_metrics",
     "resolve_device",
     "shard_batch",

@@ -7,11 +7,15 @@ group (``parallel.distributed.initialize``), built with
 
   * 'data'  - the env batch axis: rank r of W holds global rows
     [r B/W, (r+1) B/W) of every batch-major tensor (pure data parallel);
-  * 'model' - a tensor-parallel axis for the policy network. ``make_mesh``
-    accepts it; ``rl.PPOTrainer`` does not run it yet (ROADMAP).
+  * 'model' - the tensor-parallel axis of the policy network
+    (``rl.ActorCritic(mesh=...)``): each rank holds a slice of every
+    hidden layer, and the ranks of one data coordinate hold the same env
+    rows, as the JAX package replicates the batch across 'model'.
 
 Each env is independent, so the env step needs no collective; the ranks
-meet only to reduce metrics and, in the trainer, gradients. The JAX
+meet only to reduce metrics and, in the trainer, gradients over 'data',
+and to sum the policy's partial products over 'model'
+(``model_all_reduce``, the one collective of that axis). The JAX
 package's ``env_sharding`` and ``replicated`` have no counterpart: a JAX
 array carries its sharding, a torch tensor is a rank's own rows, and what
 would be replicated is simply the same on every rank.
@@ -25,7 +29,12 @@ from typing import Any, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from ..ops.cuda_integrator import LaunchCounter
+
 Tensor = torch.Tensor
+
+# All-reduces over the 'model' axis (``model_all_reduce``), every caller's.
+MODEL_ALL_REDUCES = LaunchCounter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +58,15 @@ class Mesh:
     @property
     def data_group(self):
         return None if self.device_mesh is None else self.device_mesh.get_group("data")
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's index along 'model'."""
+        return 0 if self.device_mesh is None else int(self.device_mesh.get_coordinate()[1])
+
+    @property
+    def model_group(self):
+        return None if self.device_mesh is None else self.device_mesh.get_group("model")
 
     @property
     def backend(self) -> Optional[str]:
@@ -133,6 +151,22 @@ def all_reduce(x: Tensor, mesh: Optional[Mesh], op=None) -> Tensor:
     if mesh is not None and mesh.device_mesh is not None:
         dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op, group=mesh.data_group)
     return x
+
+
+def model_all_reduce(x: Tensor, mesh: Optional[Mesh]) -> Tensor:
+    """The SUM of ``x`` over the 'model' axis, as a new tensor; a copy
+    without a process group. Floating types narrower than float32 are
+    summed in float32 and returned so (the caller rounds once); every
+    other dtype keeps its own. The one collective of the 'model' axis: an
+    all-reduce works on gloo with CUDA tensors (two ranks sharing one
+    card), where gloo lacks all-gather and reduce-scatter. Counts in
+    ``MODEL_ALL_REDUCES``."""
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    y = x.to(torch.float32) if wide else x.clone()
+    if mesh is not None and mesh.device_mesh is not None:
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.model_group)
+        MODEL_ALL_REDUCES.add()
+    return y
 
 
 def gather_batch(x: Tensor, mesh: Optional[Mesh]) -> Tensor:

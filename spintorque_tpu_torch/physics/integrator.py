@@ -261,7 +261,10 @@ def integrate_pulse_trajectory(
     fixed-length scan. The plain loop of ``integrate_pulse_plain`` (the same
     substeps, the same Philox draws) on any device, in any dtype: it stops
     at the batch's largest n and fills the rows after it with the final
-    state. An analysis path: no kernel runs it.
+    state. An analysis path: no kernel runs it. It is differentiable
+    (``current``, ``span``, ``m0``), as the JAX scan is under ``jax.grad``:
+    the optimal-control baseline of ``research.comparative_algorithms``
+    descends through it.
     """
     return _plain_loop(m0, span, current, params, config, seed, temperature, 0, trajectory=True)
 
@@ -295,11 +298,9 @@ def _plain_loop(m0, span, current, params, config, seed, temperature, env_offset
         draws = noise_draws(config)
 
     failed = torch.zeros(mx.shape, dtype=torch.bool, device=mx.device)
-    traj = None
-    if trajectory:
-        traj = torch.empty((config.max_substeps + 1, 3) + tuple(mx.shape), dtype=dtype,
-                           device=mx.device)
-        torch.stack((mx, my, mz), out=traj[0])
+    # The recorded states, stacked once at the end: writing each into a
+    # preallocated tensor (``out=``) would cut the autograd graph.
+    states = [torch.stack((mx, my, mz))] if trajectory else None
     normals = None
     for i in range(n_max):
         stage = None
@@ -316,10 +317,14 @@ def _plain_loop(m0, span, current, params, config, seed, temperature, env_offset
         my = torch.where(active, ny, my)
         mz = torch.where(active, nz, mz)
         failed = failed | zero_row
-        if traj is not None:
-            torch.stack((mx, my, mz), out=traj[i + 1])
-    if traj is not None:
-        traj[n_max + 1:] = torch.stack((mx, my, mz))
+        if states is not None:
+            states.append(torch.stack((mx, my, mz)))
+    traj = None
+    if states is not None:
+        held = config.max_substeps - n_max
+        if held > 0:  # the rows after n_max repeat the final state
+            states.append(states[-1].expand((held,) + states[-1].shape))
+        traj = torch.cat([x.reshape((-1,) + states[0].shape) for x in states])
     return PulseResult(m=(mx, my, mz), n_substeps=n, dt=dt, failed=failed), traj
 
 

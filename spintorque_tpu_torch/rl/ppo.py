@@ -19,15 +19,26 @@ flags: float32 matmuls run without TF32, PyTorch's default.
 
 On a mesh (the env's ``SpinTorqueEnv(mesh=...)``) each rank collects its own
 rows and draws its own actions and minibatch permutations (its generator
-is folded with its rank); the initial weights, drawn on the CPU from the
-seed, are the same on every rank. The advantage mean and population std are
-global (two ``all_reduce(SUM)`` passes), each minibatch takes
+is folded with its data rank when there is more than one); the initial
+weights, drawn on the CPU from the seed, are the same on every rank. The
+advantage mean and population std are global (two ``all_reduce(SUM)``
+passes), each minibatch takes
 ``n_local // num_minibatches`` rows of every rank, and its gradients are
 averaged over the ranks by one flattened ``all_reduce(SUM) / W`` before the
 clip, so the clip sees the global norm and Adam runs identically on every
 rank. The minibatches are thus stratified by rank: the same estimator as
 the JAX trainer's global permutation, another draw of it. Metrics are
 global means (``parallel.pmean_metrics``); ``episodes`` is a global sum.
+
+A mesh with a 'model' axis (n_model > 1) makes the network tensor-parallel
+(``ActorCritic(mesh=...)``): each rank holds its shard of the hidden
+layers. Every draw is keyed by the 'data' rank only, so the model ranks of
+one data coordinate draw the same actions and permutations and step the
+same env rows, as the JAX package replicates the batch across 'model'.
+The gradient average runs over 'data' on each rank's shard; the clip's
+global norm sums the sharded gradients' squares over 'model' and counts
+the replicated ones once; Adam then runs on each shard, as on the whole
+network up to the order of the row-parallel sums.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ import torch
 
 from ..envs.spin_torque import EnvState, SpinTorqueEnv
 from ..ops.philox import derive_seed
-from ..parallel.mesh import all_reduce, pmean_metrics
+from ..parallel.mesh import all_reduce, model_all_reduce, pmean_metrics
 from .networks import (
     ActorCritic,
     continuous_action_transform,
@@ -102,11 +113,6 @@ class PPOTrainer:
                 "PPOTrainer(mesh=...) takes an env built on the same mesh "
                 "(SpinTorqueEnv(mesh=...)), which holds this rank's rows"
             )
-        if mesh is not None and mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                "a 'model' mesh axis (the JAX package's tensor-parallel policy) is not "
-                "ported yet; see ROADMAP.md Queue 1 item 3 (the 'model' mesh axis)"
-            )
         self.env = env
         self.config = config
         self.mesh = mesh
@@ -123,12 +129,14 @@ class PPOTrainer:
     def make_network(self, seed: int = 0) -> ActorCritic:
         """A freshly initialized network on the env's device; its weights
         are drawn on the CPU from ``seed``, so they do not depend on the
-        device."""
+        device (nor, sliced to a rank's shard on a 'model' axis, on the
+        mesh)."""
         cfg = self.config
         network = ActorCritic(
             self.env.observation_size, self.action_dim, discrete=self.discrete,
             hidden_sizes=cfg.hidden_sizes, compute_dtype=cfg.compute_dtype,
             shared_trunk=cfg.shared_trunk, generator=torch.Generator().manual_seed(seed),
+            mesh=self.mesh,
         )
         return network.to(self.env.device)
 
@@ -139,7 +147,10 @@ class PPOTrainer:
         env_state, obs = self.env.reset(seed)
         network = self.make_network(derive_seed(seed, 1 << 32))
         draw_seed = derive_seed(seed, (1 << 32) + 1)
-        if self.mesh is not None:  # each rank its own actions and minibatches
+        # Each data coordinate draws its own actions and minibatches; the
+        # model ranks of one coordinate draw the same, and a mesh of one
+        # data coordinate (the whole batch) draws as one process does.
+        if self.mesh is not None and self.mesh.shape["data"] > 1:
             draw_seed = derive_seed(draw_seed, self.mesh.data_rank)
         generator = torch.Generator(device=self.env.device)
         generator.manual_seed(draw_seed)
@@ -251,10 +262,24 @@ class PPOTrainer:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
             offset += g.numel()
 
+    def grad_norm(self, network: ActorCritic) -> Tensor:
+        """The global L2 norm of the network's gradients, the same on every
+        rank. On a 'model' axis: the sharded gradients' squares summed over
+        'model' (one all-reduce), the replicated ones' counted once."""
+        sharded = {id(p) for p in network.sharded_parameters()}
+        total = sum(torch.sum(p.grad * p.grad) for p in network.parameters()
+                    if p.grad is not None and id(p) not in sharded)
+        squares = [torch.sum(p.grad * p.grad) for p in network.parameters()
+                   if p.grad is not None and id(p) in sharded]
+        if squares:
+            total = total + model_all_reduce(torch.stack(squares).sum(), network.mesh)
+        return torch.sqrt(total)
+
     def clip_grads(self, network: ActorCritic) -> None:
-        """optax.clip_by_global_norm on the gradients, in place."""
+        """optax.clip_by_global_norm on the gradients, in place, by the
+        whole network's norm (``grad_norm``)."""
         grads = [p.grad for p in network.parameters() if p.grad is not None]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        norm = self.grad_norm(network)
         max_norm = self.config.max_grad_norm
         for g in grads:
             g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))

@@ -13,6 +13,14 @@ bit: ``save_env_state`` writes the state's tensors, seed and counter. A
 trainer additionally carries its network, its optimizer and the
 generator that draws its actions and minibatches; ``save_train_state``
 writes their ``state_dict``s and the generator's state.
+
+A network that is tensor-parallel over a mesh's 'model' axis is written
+whole: ``save_params`` and ``save_train_state`` gather its shards (and its
+Adam moments') first, so one process without a mesh loads the file, and
+``load_train_state`` for a trainer on a mesh slices them to its shards
+again. The gather is a collective: every rank of the model group calls
+the save (each with a path of its own, or one writing and the rest
+gathering through ``rl.ActorCritic.full_state_dict``).
 """
 
 from __future__ import annotations
@@ -75,18 +83,40 @@ def load_pytree(path, target: Optional[Any] = None) -> Any:
     return tree if target is None else _like(tree, target)
 
 
+def _full_state(module: torch.nn.Module) -> dict:
+    """A module's whole ``state_dict``: gathered over 'model' for a
+    tensor-parallel ``rl.ActorCritic``."""
+    full = getattr(module, "full_state_dict", None)
+    return full() if full is not None else module.state_dict()
+
+
 def save_params(path, params: Any) -> None:
-    """Save parameters: a module's ``state_dict``, or any tree."""
-    save_pytree(path, params.state_dict() if isinstance(params, torch.nn.Module) else params)
+    """Save parameters: a module's whole ``state_dict`` (a tensor-parallel
+    network's gathered, on every rank of its model group), or any tree."""
+    save_pytree(path, _full_state(params) if isinstance(params, torch.nn.Module) else params)
 
 
 def load_params(path, target: Optional[Any] = None) -> Any:
-    """Load parameters; a module ``target`` takes them in place and is
-    returned, any other target is a template tree."""
+    """Load parameters; a module ``target`` takes them in place (a
+    tensor-parallel network its shards of them) and is returned, any other
+    target is a template tree."""
     if isinstance(target, torch.nn.Module):
-        target.load_state_dict(load_pytree(path))
+        load = getattr(target, "load_full_state_dict", target.load_state_dict)
+        load(load_pytree(path))
         return target
     return load_pytree(path, target)
+
+
+def _optimizer_state(network, state: dict, move) -> dict:
+    """An optimizer ``state_dict`` with each per-parameter tensor of a
+    parameter's shape (Adam's moments) passed through ``move(name, t)``:
+    the network's gather (``gather_shard``) or slice (``take_shard``) of
+    that parameter."""
+    names = [name for name, _ in network.named_parameters()]
+    return dict(state, state={
+        i: {k: move(names[i], v) if isinstance(v, Tensor) and v.dim() else v
+            for k, v in s.items()}
+        for i, s in state["state"].items()})
 
 
 def _state_tree(state) -> dict:
@@ -120,11 +150,13 @@ def load_env_state(path, device):
 
 def save_train_state(path, ts) -> None:
     """Save a ``rl.TrainState``: the network's and the optimizer's
-    ``state_dict``s, the env state, the last observation, the generator's
-    state and the update count."""
+    ``state_dict``s (whole: a tensor-parallel network's gathered, so every
+    rank of its model group calls this), the env state (this rank's rows),
+    the last observation, the generator's state and the update count."""
+    network = ts.network
     save_pytree(path, {
-        "network": ts.network.state_dict(),
-        "optimizer": ts.optimizer.state_dict(),
+        "network": network.full_state_dict(),
+        "optimizer": _optimizer_state(network, ts.optimizer.state_dict(), network.gather_shard),
         "env_state": _state_tree(ts.env_state),
         "obs": ts.obs,
         "generator": ts.generator.get_state(),
@@ -134,16 +166,17 @@ def save_train_state(path, ts) -> None:
 
 def load_train_state(path, trainer):
     """The ``rl.TrainState`` saved at ``path``, rebuilt for ``trainer``
-    (its network and optimizer, on its env's device): training resumes
-    from it as it would have gone on from the saved state."""
+    (its network and optimizer, on its env's device; on a 'model' axis
+    this rank's shards of them): training resumes from it as it would have
+    gone on from the saved state."""
     from ..rl.ppo import TrainState
 
     tree = load_pytree(path)
     device = trainer.env.device
     network = trainer.make_network()
-    network.load_state_dict(tree["network"])
+    network.load_full_state_dict(tree["network"])
     optimizer = trainer.make_optimizer(network)
-    optimizer.load_state_dict(tree["optimizer"])
+    optimizer.load_state_dict(_optimizer_state(network, tree["optimizer"], network.take_shard))
     generator = torch.Generator(device=device)
     generator.set_state(tree["generator"])
     return TrainState(

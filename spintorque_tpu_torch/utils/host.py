@@ -1,9 +1,12 @@
 """Reading an env step's outputs back to the host in one wait, the seeds
-of a host loop's resets, and tensors as host arrays for host-side code."""
+of a host loop's resets, tensors as host arrays for host-side code, and
+the card's name and power limit for records."""
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import shutil
+import subprocess
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -56,3 +59,15 @@ def as_numpy(x: Any) -> Any:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return x
+
+
+def card_line() -> Optional[str]:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (a
+    card's numbers depend on its limit), or None without ``nvidia-smi``."""
+    if shutil.which("nvidia-smi") is None:
+        return None
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if out.returncode == 0 and lines else None

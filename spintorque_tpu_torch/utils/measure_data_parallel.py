@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import torch
@@ -41,6 +40,7 @@ from ..ops import cuda_integrator as ci
 from ..parallel import all_reduce, initialize, make_mesh
 from ..rl import PPOConfig, PPOTrainer
 from .benchmark import measure_env_throughput, measure_train_throughput
+from .host import card_line
 
 PER_RANK_BATCH = 4096
 ENV_BLOCKS = 3
@@ -124,10 +124,7 @@ def main(argv=None) -> dict:
         plain_update_ms=joined("plain", "update_ms"), update_profiles=profiles,
         k5_launches=dict(env=env_launches, train=train_launches),
         metrics=out["metrics"],
-        card=subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60,
-        ).stdout.strip().splitlines()[0],
+        card=card_line(),
     )
     if mesh.data_rank == 0:
         line = json.dumps(result)

@@ -14,8 +14,9 @@ on the CPU (``--device cpu``). Parity:
     ``eval --model`` round-trips;
   * ``--device cuda`` without a card raises: nothing falls back to the CPU;
   * under two gloo ranks, ``train`` trains on a mesh and both ranks end
-    with equal parameters; with ``compute.mesh_model = 2`` it reaches
-    ``PPOTrainer``'s NotImplementedError for the 'model' axis.
+    with equal parameters; with ``compute.mesh_model = 2`` it trains the
+    tensor-parallel policy, writes the gathered parameters once, and
+    ``eval --model`` loads them in one process.
 """
 
 import json
@@ -343,8 +344,45 @@ def test_cli_train_on_a_two_rank_mesh(tmp_path):
     assert (tmp_path / "p.pt").is_file()  # written once, by rank 0
 
 
-def test_cli_train_model_axis_is_not_ported(tmp_path):
+def test_cli_train_model_axis_is_not_ported(tmp_path, capsys):
+    """``compute.mesh_model = 2`` on two ranks: the 'model' axis trains (a
+    (1, 2) mesh, each rank holding its half of the even hidden layers),
+    rank 0 writes the gathered whole parameters once, and ``eval --model``
+    in one process without a mesh loads them."""
     cfg = _config(tmp_path, compute={"mesh_model": 2})
-    with pytest.raises(RuntimeError, match="Queue 1 item 3"):
-        spawn_ranks(_train_rank, 2, args=(["train", "--config", cfg, "--device", "cpu"],),
-                    workdir=str(tmp_path))
+    policy = tmp_path / "tp.pt"
+    out = spawn_ranks(_train_rank, 2, args=(["train", "--config", cfg, "--device", "cpu",
+                                             "--output", str(policy)],),
+                      workdir=str(tmp_path))
+    (rc0, r0), (rc1, r1) = out
+    assert rc0 == rc1 == 0
+    assert r0["mesh"] == r1["mesh"] == {"data": 1, "model": 2}
+    assert r0["rows"] == r1["rows"] == 64
+    # Parameter 1 is trunks.actor.0.weight: 8 of its 16 rows on each rank.
+    w0, w1 = r0["params"][1], r1["params"][1]
+    assert w0.shape == w1.shape == (8, 12) and not torch.equal(w0, w1)
+    saved = torch.load(policy, weights_only=True)
+    assert torch.equal(saved["trunks.actor.0.weight"], torch.cat([w0, w1]))
+    assert main(["eval", "--config", cfg, "--model", str(policy), "--episodes-steps", "3",
+                 "--device", "cpu"]) == 0
+    stats = _last_json(capsys)
+    assert stats["steps"] == 64 * 3 and np.isfinite(stats["mean_reward"])
+
+
+def test_cli_train_on_a_data_and_model_mesh(tmp_path):
+    """Four ranks, ``compute.mesh_data = 2`` and ``mesh_model = 2``: each
+    data coordinate holds 32 of the 64 envs, each model rank its half of the
+    hidden layers; every rank ends with the same whole network, which rank
+    0 writes once."""
+    cfg = _config(tmp_path, compute={"mesh_data": 2, "mesh_model": 2})
+    policy = tmp_path / "tp.pt"
+    out = spawn_ranks(_train_rank, 4, args=(["train", "--config", cfg, "--device", "cpu",
+                                             "--output", str(policy)],),
+                      workdir=str(tmp_path))
+    assert [rc for rc, _ in out] == [0, 0, 0, 0]
+    for _, r in out:
+        assert r["mesh"] == {"data": 2, "model": 2} and r["rows"] == 32
+    halves = [r["params"][1] for _, r in out]  # trunks.actor.0.weight
+    assert torch.equal(halves[0], halves[2]) and torch.equal(halves[1], halves[3])
+    saved = torch.load(policy, weights_only=True)
+    assert torch.equal(saved["trunks.actor.0.weight"], torch.cat(halves[:2]))

@@ -200,6 +200,25 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         integrate_pulse(m0, spans.cpu(), cur, p, cfg)
 
 
+def test_integrate_pulse_with_gradients_raises_on_the_card(cuda):
+    """K1 has no backward: a current that requires grad raises, launches
+    nothing, and the plain loop on the same card tensors differentiates.
+    The currents are ~1e-6 A/m^2, the smooth regime where the gradient is
+    finite (at larger ones the simplified STT term is stiff and the
+    gradient NaN, in the JAX package too)."""
+    m0, spans, cur = _setup(8, cuda)
+    p = _params(cuda)
+    cfg = IntegratorConfig(max_substeps=64)
+    ci.PULSE_LAUNCHES.reset()
+    current = (cur * 5e-9).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        integrate_pulse(m0, spans, current, p, cfg)
+    assert ci.PULSE_LAUNCHES.count == 0
+    res = integrate_pulse_plain(m0, spans, current, p, cfg)
+    res.m[2].sum().backward()
+    assert current.grad is not None and torch.isfinite(current.grad).all()
+
+
 def test_env_step_launches_the_kernel_without_host_sync(cuda):
     env = SpinTorqueEnv(batch_size=256, device=cuda, max_duration=1e-10)
     before = ci.PULSE_LAUNCHES.count

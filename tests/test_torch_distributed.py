@@ -86,11 +86,9 @@ def _mesh_rank():
         except ValueError as e:
             out[name] = str(e)
     tp = make_mesh(n_data=1, n_model=2, device="cpu")
-    try:
-        PPOTrainer(_env(16, tp), PPOConfig(hidden_sizes=(8,)))
-        out["tp"] = None
-    except NotImplementedError as e:
-        out["tp"] = str(e)
+    out["tp_ranks"] = (tp.data_rank, tp.model_rank)
+    network = PPOTrainer(_env(16, tp), PPOConfig(hidden_sizes=(8,))).init(0).network
+    out["tp"] = tuple(network.trunks["actor"][0].weight.shape)
     return out
 
 
@@ -199,13 +197,15 @@ def test_process_info_two_ranks():
 
 
 def test_mesh_shapes_and_errors():
-    for o in _run(_mesh_rank):
+    out = _run(_mesh_rank)
+    for o in out:
         assert o["default"] == {"data": 2, "model": 1}
         assert o["model"] == {"data": 1, "model": 2}
         assert o["local_64"] == 32
         assert "3x1" in o["bad_mesh"]
         assert "not divisible" in o["bad_batch"] and "not divisible" in o["bad_env"]
-        assert "ROADMAP" in o["tp"]
+        assert o["tp"] == (4, 12)  # the trainer holds its half of the hidden layer
+    assert [o["tp_ranks"] for o in out] == [(0, 0), (0, 1)]
 
 
 def test_each_rank_holds_its_rows():

@@ -265,3 +265,67 @@ def test_adaptive_solver_facade():
     np.testing.assert_allclose(out["m"].numpy(), [0.0, 0.0, 1.0])
     with pytest.raises(ValueError, match="unknown method"):
         AdaptiveLLGSSolver(method="rk23", device="cpu")
+
+
+# The optimal-control scale of the research tier's device (tests/unit/
+# test_research_tier.py's _params(); OptimalControlBaseline's default
+# max_current there is ~4.0e-7 A/m^2): smooth dynamics whose gradient JAX
+# computes finite.
+OC_DP = dict(volume=1e-24, saturation_magnetization=800e3, damping=0.05,
+             uniaxial_anisotropy=4e5, polarization=0.7, easy_axis=np.array([0.0, 0.0, 1.0]))
+
+
+def test_trajectory_gradient_matches_jax_grad():
+    """d/dJ of a scalar of the final state (its alignment with -z, summed
+    over envs) through the trajectory, float64, against ``jax.grad``
+    through the jitted JAX trajectory: rtol 1e-9 (jitted XLA fuses
+    multiply-adds; the dynamics at this scale are not chaotic). The result
+    keeps its (max_substeps + 1, 3, B) shape and the forward bits of the
+    plain pulse."""
+    m = _starts(3, 9)
+    spans = np.array([2e-10, 1.5e-10, 2e-10])
+    cur = np.array([2e-7, -1.5e-7, 3e-7])
+    cfg = dict(method="rk4", max_substeps=256)
+    jp = jax_params_from_dict(OC_DP, jnp.float64)
+
+    def jloss(j):
+        res, _ = jax_trajectory(tuple(jnp.asarray(m[:, c]) for c in range(3)),
+                                jnp.asarray(spans), j, jp, JConfig(**cfg))
+        return -jnp.sum(res.m[2])
+
+    want = np.asarray(jax.jit(jax.grad(jloss))(jnp.asarray(cur)))
+    tp = params_from_dict(OC_DP, torch.float64, device="cpu")
+    current = torch.tensor(cur, requires_grad=True)
+    m0 = tuple(torch.from_numpy(m[:, c].copy()) for c in range(3))
+    res, traj = integrate_pulse_trajectory(m0, torch.from_numpy(spans), current, tp,
+                                           IntegratorConfig(**cfg))
+    assert traj.shape == (257, 3, 3) and traj.requires_grad
+    (-res.m[2].sum()).backward()
+    assert np.all(np.isfinite(want)) and np.any(want != 0.0)
+    np.testing.assert_allclose(current.grad.numpy(), want, rtol=1e-9, atol=0.0)
+    plain = integrate_pulse_plain(m0, torch.from_numpy(spans), torch.from_numpy(cur), tp,
+                                  IntegratorConfig(**cfg))
+    assert torch.equal(traj[-1].detach(), torch.stack(plain.m))
+
+
+def test_cuda_pulse_refuses_gradients():
+    """The kernel has no backward: inputs that require a gradient raise
+    before any build or launch (so the check runs here, without a card),
+    and name the plain loop that differentiates."""
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+
+    m0 = tuple(torch.zeros(4) for _ in range(3))
+    span, cur = torch.full((4,), 1e-10), torch.zeros(4)
+    tp = params_from_dict(DP, torch.float32, device="cpu")
+    cfg = IntegratorConfig()
+    for which in ("m0", "span", "current"):
+        args = [tuple(x.clone() for x in m0), span.clone(), cur.clone()]
+        if which == "m0":
+            args[0][2].requires_grad_(True)
+        else:
+            args[("span", "current").index(which) + 1].requires_grad_(True)
+        with pytest.raises(RuntimeError, match=f"no gradient \\({which} requires grad\\).*plain"):
+            ci.integrate_pulse_cuda(*args, tp, cfg)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ci.launch_pulse(m0, span, torch.full((4,), 10, dtype=torch.int32),
+                        cur.clone().requires_grad_(True), tp, cfg)
