@@ -40,15 +40,23 @@ mesh axis (``model_axis_phase``): two gloo ranks sharing the card on a
 (data 1, model 2) mesh train ``PPOConfig()`` at global B=4096 for two
 steps, each rank holding its half of the hidden layers; their env states
 and gathered parameters equal bit for bit, step 1's update against a
-world-size-1 trainer's on the card. Last, the classical research tier
+world-size-1 trainer's on the card. Then the classical research tier
 (``research_phase``): the cross-entropy, grid and annealing searches of the
 switching pulse (one K1 launch per population), the switching objective
 against its plain version on the CPU, the standard benchmark suite,
 ``compare_policies`` at B=4096, the validation checks in float32, the
 optimal-control baseline (the plain loop under autograd: no kernel, its
 loss and gradient against the CPU) and the comparative analysis's default
-controllers one by one. Each path's launch counts are set to 0 just before
-it and read just after. Any failed check raises and exits non-zero.
+controllers one by one (the optimal-control one's energy must be finite).
+Last, the quantum tier (``quantum_phase``): the quantum benchmark suite at
+its defaults, QAOA at 14 qubits against the CPU, a 20-qubit, depth-20
+circuit at batch 64 (norms, and two states against the CPU by fidelity),
+the hybrid paths onto K1 (the scheduler's B=4096 classical task bit for
+bit with the plain loop, the hybrid simulator at 12 devices, the
+surrogate optimizer over the switching objective at n_train 2048, the
+QAOA device-design optimizer with its cross-entropy stage) and the quantum
+validation checks. Each path's launch counts are set to 0 just before it
+and read just after. Any failed check raises and exits non-zero.
 
 Beside the kernels' checks it holds the pulse kernel's design: ptxas's
 report shows no spill in any pulse_kernel instance; div6, the kernel's
@@ -125,6 +133,12 @@ Tolerances:
     loss and gradient on the card against the CPU at 1e-4 and 1e-3 of
     their largest magnitude (float32 physics through 600 substeps under
     autograd, eager on both);
+  * the quantum tier: the 14-qubit QAOA grid of expectation values on the
+    card against the CPU port within 1e-4 of its largest magnitude
+    (float32 products summed in another order); the 20-qubit states' norms
+    within 1e-4 of 1 and two of them against the CPU port by fidelity
+    within 1e-4 (float32 through ~590 gates); the scheduler's classical
+    task against the plain loop on the card bit for bit (max_abs_err 0);
   * the functional envs of the Gymnasium ids, card vs CPU from the same
     state and actions, float32, thermal off: SpinTorque-v0 10 steps at
     1e-4 on obs and reward (as the one-step check); the array env one step
@@ -1413,6 +1427,8 @@ def research_phase(dev, smi):
         row = controller(task)
         controllers[name] = stop(f"controller_{name}", t0, **row)
         check(np.isfinite(row["alignment"]), f"controller {name}: {row}")
+    check(np.isfinite(controllers["optimal_control"]["energy_J"]),
+          f"the optimal-control controller's energy: {controllers['optimal_control']}")
 
     launches = {
         "research_objective": sum(out[k]["k1_launches"] for k in (
@@ -1452,6 +1468,253 @@ def research_phase(dev, smi):
                       for n, c in controllers.items())
           + f" (optimal control at 1 iteration of 60); research phase {out['seconds']:.1f} s"
           f"  [{smi}]")
+    return out
+
+
+def quantum_phase(dev, smi):
+    """The quantum tier on the card, each item with its K1 launches counted
+    from 0: the quantum benchmark suite at its defaults (state vector 12
+    qubits x depth 20 x batch 64, QAOA 10 variables x grid 24, surface code
+    500,000 trials; no kernel); QAOA at 14 qubits, its grid of expectation
+    values against the CPU port; a 20-qubit, depth-20 circuit at batch 64
+    (512 MB a state batch, which ``AdaptiveResourceOptimizer`` marks
+    feasible on this card): every norm within 1e-4 of 1, two of its states
+    against the CPU by fidelity; the scheduler with a B=4096
+    ``classical_llgs`` task (one K1 launch) bit for bit with the plain loop
+    on the card; the hybrid simulator at 12 devices over 4 rounds (4);
+    ``QuantumMLDeviceOptimizer`` over ``switching_objective`` at n_train =
+    2048 (2: the training data and the re-rank);
+    ``QuantumSpintronicOptimizer.optimize`` with a physics QUBO and the
+    cross-entropy stage on ``switching_objective`` (1 + 10); the eager
+    Adam loops at their defaults (the landscape's VQE, a QNN fit, QRL
+    training, the surrogate's fit over the switching objective: 2), each
+    timed, with its CUDA kernels and device ms a step from the profiler
+    over 5 and 10 steps; and ``QuantumValidationFramework``, which must
+    pass."""
+    import numpy as np
+    import torch
+
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+    from spintorque_tpu_torch.physics import IntegratorConfig, integrate_pulse_plain
+    from spintorque_tpu_torch.physics import params_from_dict
+    from spintorque_tpu_torch.quantum import (
+        AdaptiveResourceOptimizer,
+        AdaptiveScheduler,
+        HybridMultiDeviceSimulator,
+        IterationFreeQAOA,
+        QuantumCircuit,
+        QuantumEnhancedEnergyLandscape,
+        QuantumMLDeviceOptimizer,
+        SimulationTask,
+        SymmetryEnhancedVQE,
+        create_standard_benchmark_suite,
+    )
+    from spintorque_tpu_torch.quantum import statevector as sv
+    from spintorque_tpu_torch.research import (
+        QuantumNeuralNetwork,
+        QuantumReinforcementLearning,
+        QuantumSpintronicOptimizer,
+        QuantumValidationFramework,
+        switching_objective,
+    )
+
+    out = {}
+    t_phase = time.perf_counter()
+    counters = (ci.PULSE_LAUNCHES, ci.PULSE_BF16_LAUNCHES, ci.PULSE_SHARDED_LAUNCHES)
+
+    def start():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        return time.perf_counter()
+
+    def stop(name, t0, want=None, **extra):
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        k1, k6, k5 = (c.count for c in counters)
+        check(k6 == 0 and k5 == 0, f"{name} launched K6 {k6} / K5 {k5} times")
+        if want is not None:
+            check(k1 == want, f"{name} launched K1 {k1} times, want {want}")
+        out[name] = dict(ms=ms, k1_launches=k1, **extra)
+        return out[name]
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+
+    # ---- the quantum benchmark suite at its defaults
+    t0 = start()
+    suite = create_standard_benchmark_suite(device=dev).run()
+    stop("suite", t0, want=0, **{k: v["value"] for k, v in suite["results"].items()})
+    check(suite["backend"] == "cuda" and suite["card"] == smi, f"suite report {suite['card']}")
+
+    # ---- QAOA at 14 qubits: the grid of 576 settings in one batch
+    rng = np.random.default_rng(14)
+    Q = np.triu(rng.normal(size=(14, 14)))
+    t0 = start()
+    qaoa = IterationFreeQAOA(max_qubits=14, device=dev)
+    res = qaoa.optimize(Q)
+    stop("qaoa_14", t0, want=0, best_value=res.best_value,
+         approximation_ratio=qaoa.approximation_ratio(Q, res))
+    cpu_qaoa = IterationFreeQAOA(max_qubits=14, device="cpu")
+    cost = qaoa.qubo_cost_vector(Q, dev)
+    values = qaoa.grid_values(cost, qaoa.angle_grid()).cpu()
+    want = cpu_qaoa.grid_values(cost.cpu(), cpu_qaoa.angle_grid())
+    qaoa_err = float((values - want).abs().max() / want.abs().max())
+    check(qaoa_err < 1e-4, f"QAOA grid card vs CPU: {qaoa_err:.3e} of the largest value")
+    out["qaoa_14"].update(grid_rel_err=qaoa_err, best_expectation=float(values.min()),
+                          cpu_best_expectation=float(want.min()))
+
+    # ---- a 20-qubit, depth-20 circuit at batch 64
+    n, depth, batch = 20, 20, 64
+    circ = QuantumCircuit(n)  # on the card: no device means the card
+    for w in range(n):
+        circ.ry(w, w)  # layer 0 reads one angle vector a state
+    for d in range(1, depth):
+        for w in range(n):
+            circ.add("RY", w, float(rng.uniform(0, np.pi)))
+        for w in range(d % 2, n - 1, 2):
+            circ.cz(w, w + 1)
+    task = SimulationTask("quantum_circuit", {"circuit": circ, "batch": batch})
+    plan = AdaptiveResourceOptimizer(device=dev).recommend(task)
+    check(plan["feasible"] and plan["batch"] == batch, f"the resource plan {plan}")
+    angles = torch.tensor(rng.uniform(0, np.pi, size=(batch, n)), dtype=torch.float32)
+    t0 = start()
+    psi = circ.run(angles)  # host angles: the circuit moves them to the card
+    check(psi.is_cuda, f"a circuit with no device ran on {psi.device}")
+    big = stop("statevector_20q", t0, want=0, gates=len(circ.gates), batch=batch,
+               state_batch_mb=psi.numel() * 4 / 2**20, plan=plan)
+    norms = sv.probabilities(psi).sum(-1).cpu()
+    norm_err = float((norms - 1).abs().max())
+    check(norm_err < 1e-4, f"20-qubit norms off by {norm_err:.3e}")
+    cpu_circ = QuantumCircuit(n, circ.gates, device="cpu")
+    ref = cpu_circ.run(angles[:2])
+    fid = sv.fidelity(psi[:2].cpu(), ref)
+    fid_err = float((fid - 1).abs().max())
+    check(fid_err < 1e-4, f"20-qubit states card vs CPU: fidelity off by {fid_err:.3e}")
+    big.update(norm_err=norm_err, fidelity_err=fid_err)
+    del psi
+
+    # ---- the scheduler: a circuit task and a B=4096 classical_llgs task (K1)
+    p = params_from_dict(RESEARCH_DEVICE, device=dev)
+    m0 = torch.randn((4096, 3), generator=torch.Generator().manual_seed(5), dtype=torch.float64)
+    m0 = (m0 / m0.norm(dim=-1, keepdim=True)).float()
+    tasks = [SimulationTask("quantum_circuit", {"circuit": QuantumCircuit(12, device=dev).h(0)}),
+             SimulationTask("classical_llgs", {"m0": m0.to(dev), "params": p, "span": 1e-9,
+                                               "current": 200.0, "max_substeps": 2048})]
+    t0 = start()
+    done = AdaptiveScheduler(device=dev).submit(tasks)
+    stop("scheduler", t0, want=1)
+    got = next(t.result for t in done if t.kind == "classical_llgs")
+    mg = m0.to(dev)
+    cfg = IntegratorConfig(method="rk4", max_substeps=2048)
+    plain = integrate_pulse_plain(tuple(mg[:, c].contiguous() for c in range(3)),
+                                  torch.full((4096,), 1e-9, device=dev),
+                                  torch.full((4096,), 200.0, device=dev), p, cfg)
+    sched_err = max_diff(got.cpu(), torch.stack(plain.m, -1).cpu())
+    check(sched_err == 0.0, f"the scheduler's K1 task vs the plain loop: {sched_err:.3e}")
+    out["scheduler"]["max_abs_err"] = sched_err
+
+    # ---- the hybrid simulator at 12 devices, 4 rounds: one K1 launch a round
+    sim = HybridMultiDeviceSimulator(p, n_devices=12)
+    hm0 = np.tile([0.1, 0.0, 0.995], (12, 1)).astype(np.float32)
+    t0 = start()
+    hyb = sim.run(hm0, currents=[200.0, -200.0, 200.0, -200.0], span=1e-10)
+    stop("hybrid", t0, want=4, mean_alignment=hyb["info"][-1]["mean_alignment"])
+    check(np.allclose(np.linalg.norm(hyb["final"], axis=-1), 1.0, atol=1e-5),
+          f"hybrid norms {hyb['final']}")
+
+    # ---- the surrogate optimizer over the switching objective (smooth regime)
+    objective = switching_objective(p)
+    space = {"current": (-2e-5, 2e-5), "duration": (1e-11, 2e-10)}
+    t0 = start()
+    sur = QuantumMLDeviceOptimizer(n_train=2048, device=dev).optimize(objective, space, seed=0)
+    stop("surrogate", t0, want=2, best_value=sur.best_value, best=sur.best_params,
+         final_fit_loss=float(sur.history[-1]))
+    check(np.isfinite(sur.best_value) and sur.best_value < 1.0, f"surrogate: {sur}")
+
+    # ---- the QAOA device-design optimizer: a physics QUBO over 6 polarity
+    # bits (one K1 launch for its 22 probes), then CEM on the pulse (10)
+    levels = torch.tensor([1e-6, 2e-6, 4e-6, 8e-6, 1.6e-5, -2e-5], dtype=torch.float64)
+
+    def design_current(X):
+        return (torch.as_tensor(np.asarray(X), dtype=torch.float64) * levels).sum(-1)
+
+    def discrete_objective(X):
+        cur = design_current(X).to(dev)
+        return objective({"current": cur, "duration": torch.full_like(cur, 2e-10)})
+
+    def continuous_objective(design, params):
+        return objective(params) + 0.01 * float(design.sum())
+
+    t0 = start()
+    qso = QuantumSpintronicOptimizer(device=dev).optimize(
+        discrete_objective, 6, continuous_objective, space)
+    stop("spintronic_optimizer", t0, want=11, best_value=qso["best_value"],
+         design=qso["design"].tolist(), discrete_best=qso["discrete"].best_value)
+    check(np.isfinite(qso["best_value"]), f"spintronic optimizer: {qso}")
+
+    # ---- the eager Adam loops at their defaults: ms, and CUDA kernels and
+    # device ms a step from the profiler's difference of two short runs
+    landscape = QuantumEnhancedEnergyLandscape(p)
+    diag = landscape.diagonal_hamiltonian("uniaxial")
+    X = rng.uniform(-1, 1, size=(48, 4)).astype(np.float32)
+    y = np.sign(X[:, 0]).astype(np.float32)
+
+    def sample_obs(generator, n):
+        return 2.0 * torch.rand((n, 2), generator=generator, device=dev) - 1.0
+
+    def reward_fn(obs, action):
+        return 1.0 if action == int(obs[0] > 0) else 0.0
+
+    loops = {  # name: (a run of n steps, the default n)
+        "vqe": (lambda n: SymmetryEnhancedVQE(landscape.n_theta_qubits, iterations=n,
+                                              device=dev).minimize_diagonal(diag), 300),
+        "qnn_fit": (lambda n: QuantumNeuralNetwork(device=dev).fit(X, y, epochs=n), 100),
+        "qrl_train": (lambda n: QuantumReinforcementLearning(2, 2, device=dev).train(
+            sample_obs, reward_fn, episodes=n), 200),
+        "surrogate_fit": (lambda n: QuantumMLDeviceOptimizer(
+            n_train=2048, train_steps=n, refine_steps=0, device=dev).optimize(
+            objective, space), 500),
+    }
+    for name, (run, steps) in loops.items():
+        (k5, d5), (k10, d10) = (kernels_per_call(lambda n=n: run(n)) for n in (5, 10))
+        t0 = start()
+        run(steps)
+        rec = stop(name, t0, want=2 if name == "surrogate_fit" else 0, steps=steps,
+                   kernels_per_step=(k10 - k5) / 5, device_ms_per_step=(d10 - d5) / 5)
+        rec["ms_per_step"] = rec["ms"] / steps
+
+    # ---- the quantum tier's validation checks
+    t0 = start()
+    report = QuantumValidationFramework(device=dev).run_all()
+    checks = {c["name"]: c for c in report["checks"]}
+    stop("validation", t0, want=0, checks=checks)
+    check(report["passed"], f"quantum validation failed on the card: {checks}")
+
+    out["launches"] = {f"quantum_{k}": out[k]["k1_launches"]
+                       for k in ("scheduler", "hybrid", "surrogate", "spintronic_optimizer",
+                                 "surrogate_fit")}
+    out["seconds"] = time.perf_counter() - t_phase
+    o, res_ = out, suite["results"]
+    print(f"quantum: suite state vector {res_['statevector']['value']:.0f} gate applications/s "
+          f"(12 qubits x depth 20 x batch 64), QAOA {res_['qaoa']['value']:.0f} angle "
+          f"evaluations/s (10 vars x grid 24), surface code {res_['surface_code']['value']:.0f} "
+          f"decodes/s (500,000 trials); QAOA 14 qubits {o['qaoa_14']['ms']:.0f} ms, grid vs CPU "
+          f"{qaoa_err:.1e}; 20 qubits x depth 20 x batch 64 ({big['gates']} gates, "
+          f"{big['state_batch_mb']:.0f} MB) {big['ms']:.0f} ms, norm err {norm_err:.1e}, "
+          f"fidelity err vs CPU {fid_err:.1e}  [{smi}]")
+    print(f"quantum: scheduler B=4096 K1 {o['scheduler']['k1_launches']} in "
+          f"{o['scheduler']['ms']:.0f} ms, max_abs_err vs plain {sched_err}; hybrid 12 devices x 4 "
+          f"rounds K1 {o['hybrid']['k1_launches']} in {o['hybrid']['ms']:.0f} ms; surrogate "
+          f"n_train 2048 best {sur.best_value:.4g} K1 {o['surrogate']['k1_launches']} in "
+          f"{o['surrogate']['ms']:.0f} ms; spintronic optimizer best {qso['best_value']:.4g} K1 "
+          f"{o['spintronic_optimizer']['k1_launches']} in {o['spintronic_optimizer']['ms']:.0f} ms; "
+          f"validation " + ", ".join(f"{k} {'pass' if c['passed'] else 'FAIL'}"
+                                     for k, c in checks.items())
+          + f"; quantum phase {out['seconds']:.1f} s  [{smi}]")
+    print("quantum: eager loops at their defaults: " + "; ".join(
+        f"{k} {o[k]['steps']} steps {o[k]['ms']:.0f} ms ({o[k]['ms_per_step']:.2f} ms a step, "
+        f"{o[k]['kernels_per_step']:.0f} CUDA kernels and {o[k]['device_ms_per_step']:.3f} "
+        f"device ms a step)" for k in loops) + f"  [{smi}]")
     return out
 
 
@@ -2283,18 +2546,23 @@ def main():
     RECORD["research"] = research_phase(dev, smi)
     research_launches = RECORD["research"]["launches"]
 
+    # ------------------------------------------------ 19. the quantum tier
+    RECORD["quantum"] = quantum_phase(dev, smi)
+    quantum_launches = RECORD["quantum"]["launches"]
+
     pulse = "spintorque_tpu_torch/csrc/pulse_integrator.cu"
     kernels = [
         dict(name="llgs_pulse", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:283",
              launches=(launches["llgs_pulse"] + solver_launches + sum(shell_launches.values())
-                       + sum(research_launches.values())),
+                       + sum(research_launches.values()) + sum(quantum_launches.values())),
              launches_by_path=dict(env=launches["llgs_pulse"], solver=solver_launches,
                                    **{f"shell_{k}": v for k, v in shell_launches.items()},
-                                   **research_launches),
+                                   **research_launches, **quantum_launches),
              max_abs_err=max(det_err, thermal_err, t_main["max_abs_err"],
                              *(r["max_abs_err"] for r in RECORD["analysis"]["solver"]["solves"]),
-                             RECORD["research"]["objective"]["max_abs_err"]),
+                             RECORD["research"]["objective"]["max_abs_err"],
+                             RECORD["quantum"]["scheduler"]["max_abs_err"]),
              ms=t_main["ms"], plain_ms=t_main["plain_ms"], bound_ms=t_main["bound_ms"],
              bound_by=t_main["bound_by"], library_ms=None, chain_floor_ms=floors["K1"],
              deterministic_ms=t_det["ms"],

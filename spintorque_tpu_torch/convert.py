@@ -8,7 +8,10 @@ The JAX side is seen only as numpy dicts of its dataclass fields (flax
     last_duration, episode_return, key, reward_stats) -> the port's EnvState,
     and likewise the array env's ``ArrayEnvState`` (pattern, target, ...)
     and the skyrmion env's ``SkyrmionEnvState`` (positions, velocities, ...);
-  * the flax ``ActorCritic`` parameter tree -> ``rl.ActorCritic`` and back.
+  * the flax ``ActorCritic`` parameter tree -> ``rl.ActorCritic`` and back;
+  * the quantum tier's parameters: the (n_blocks, n_qubits, 2) angles of
+    ``QuantumNeuralNetwork`` / ``QuantumReinforcementLearning`` and the
+    surrogate MLP's ``[(w, b), ...]`` of ``QuantumMLDeviceOptimizer``.
 
 A JAX PRNG key (two uint32 words) maps to the port's 64-bit seed as
 (key[0] << 32) | key[1], and back; the host step counter, which with the
@@ -18,7 +21,7 @@ seed keys a step's draws, starts at 0.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -174,3 +177,30 @@ def actor_critic_params_to_numpy(module: ActorCritic) -> Dict[str, Any]:
     if not module.discrete:
         out["log_std"] = full["log_std"]
     return out
+
+
+def variational_params_from_numpy(params, module):
+    """Copy the JAX model's (n_blocks, n_qubits, 2) rotation angles (a numpy
+    array) into ``module.params`` (of a ``QuantumNeuralNetwork`` or a
+    ``QuantumReinforcementLearning``) in place, on its device. Returns
+    ``module``."""
+    with torch.no_grad():
+        module.params.copy_(torch.as_tensor(np.array(params)))
+    return module
+
+
+def variational_params_to_numpy(module) -> np.ndarray:
+    """The (n_blocks, n_qubits, 2) rotation angles of ``module``."""
+    return module.params.detach().cpu().numpy()
+
+
+def mlp_params_from_numpy(params: Sequence[Tuple[Any, Any]], *, device,
+                          dtype=torch.float32) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The surrogate MLP's ``[(w, b), ...]`` (w (in, out), as in the JAX
+    package) from numpy arrays, as tensors on ``device``."""
+    return [(_tensor(w, device, dtype), _tensor(b, device, dtype)) for w, b in params]
+
+
+def mlp_params_to_numpy(params) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The surrogate MLP's ``[(w, b), ...]`` as numpy arrays."""
+    return [(w.detach().cpu().numpy(), b.detach().cpu().numpy()) for w, b in params]

@@ -170,10 +170,22 @@ __device__ __forceinline__ void normalize_with_fallback(float& x, float& y, floa
   }
 }
 
+// x, or +0 where x is a float subnormal (|x| below FLT_MIN): one compare and
+// select, as the plain version's flush_subnormal. XLA flushes subnormals on
+// the CPU and a TPU, and the JAX package's pole states with subnormal
+// transverse components stay at the pole; IEEE arithmetic would grow them.
+// An explicit select, not -ftz=true, which the plain version cannot mirror.
+// Narrower than XLA's flush: only the carried state, and to +0 (XLA keeps
+// the sign and flushes every intermediate too).
+__device__ __forceinline__ float flush_subnormal(float x) {
+  return fabsf(x) < 1.17549435e-38f ? 0.0f : x;
+}
+
 // One substep of the float state (mx, my, mz) with stage fields h (stage s
 // reads h[3s..3s+2]; unused when !THERMAL). The stages read a copy of the
 // state in T; the increment is widened and added to the float state, which is
-// then normalized. Returns whether the new state is the all-zero row.
+// then normalized and flushed of subnormals. Returns whether the new state is
+// the all-zero row.
 template <typename T, int METHOD, bool THERMAL, bool PLUS_Z>
 __device__ __forceinline__ bool substep(float& mx, float& my, float& mz, const T (&h)[12],
                                         const Coeffs<T>& c, const T dt) {
@@ -225,6 +237,9 @@ __device__ __forceinline__ bool substep(float& mx, float& my, float& mz, const T
   float ny = my + to_f32(dy);
   float nz = mz + to_f32(dz);
   normalize_with_fallback(nx, ny, nz);
+  nx = flush_subnormal(nx);
+  ny = flush_subnormal(ny);
+  nz = flush_subnormal(nz);
   mx = nx;
   my = ny;
   mz = nz;

@@ -178,9 +178,9 @@ __device__ __forceinline__ void consume(const PulseArgs& a, bool live, int64_t e
   constexpr int C = chunk_substeps<PER_STAGE>();
   const Coeffs<T> c = load_coeffs<T, PLUS_Z>(a, env);
   const T dt = from_f32<T>(a.dt[env]);
-  float mx = a.mx0[env];
-  float my = a.my0[env];
-  float mz = a.mz0[env];
+  float mx = flush_subnormal(a.mx0[env]);
+  float my = flush_subnormal(a.my0[env]);
+  float mz = flush_subnormal(a.mz0[env]);
   bool failed = false;
   T h[12];
 #pragma unroll

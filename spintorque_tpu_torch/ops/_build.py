@@ -71,13 +71,13 @@ def find_nvcc() -> str:
     )
 
 
-def _sources():
-    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+def _sources(csrc: Path = CSRC):
+    return sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def source_digest() -> str:
+def source_digest(csrc: Path = CSRC) -> str:
     h = hashlib.sha256()
-    for p in _sources():
+    for p in _sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -142,7 +142,17 @@ def load_library() -> KernelLibrary:
 
 def _load_library() -> None:
     global _LIBRARY
-    out = BUILD_DIR / f"libspintorque_kernels_{source_digest()}.so"
+    _LIBRARY = build_library()
+
+
+def build_library(csrc: Optional[Path] = None) -> KernelLibrary:
+    """Build the sources of ``csrc`` (the checkout's when None) into
+    ``BUILD_DIR`` if needed (once per source digest), load and bind the
+    library. Other sources with the same C interface (a parent commit's)
+    build beside the checkout's, and ``use_library`` puts them in its
+    place."""
+    csrc = CSRC if csrc is None else Path(csrc).resolve()
+    out = BUILD_DIR / f"libspintorque_kernels_{source_digest(csrc)}.so"
     log_path = out.with_suffix(".log")
     seconds = 0.0
     if not out.is_file():
@@ -151,7 +161,7 @@ def _load_library() -> None:
         # Named by process and thread: another process may build the same
         # digest into the same directory at the same time.
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        sources = [p for p in _sources() if p.suffix == ".cu"]
+        sources = [p for p in _sources(csrc) if p.suffix == ".cu"]
         objects = [tmp.with_suffix(f".{p.stem}.o") for p in sources]
         t0 = time.perf_counter()
         try:
@@ -171,10 +181,19 @@ def _load_library() -> None:
     log = log_path.read_text() if log_path.is_file() else ""
     lib = ctypes.CDLL(str(out))
     _bind(lib)
-    _LIBRARY = KernelLibrary(lib, out, seconds, log)
+    return KernelLibrary(lib, out, seconds, log)
 
 
 _KERNEL_FNS: Dict[str, object] = {}
+
+
+def use_library(library: KernelLibrary) -> None:
+    """Make ``library`` the one every wrapper launches from (its entry
+    points are bound anew at their next call)."""
+    global _LIBRARY
+    with BUILD_LOCK:
+        _LIBRARY = library
+        _KERNEL_FNS.clear()
 
 
 def kernel_fn(name: str):

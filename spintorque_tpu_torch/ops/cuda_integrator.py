@@ -104,6 +104,7 @@ def shard_env_offset(rank: int, local_batch: int) -> int:
 # Box-Muller pairs of ~40 ops (uniforms, log, sqrt, the folded cos/sin).
 _RHS_OPS = {True: 46, False: 64}
 _NORMALIZE_OPS = 9 + 7  # squares, sqrt, divides; finiteness compares, selects
+_FLUSH_OPS = 3 + 3  # the subnormal flush: a compare (of |x|) and a select a component
 _PHILOX_CALL_OPS = 10 * 10 + 2 * 40
 
 
@@ -116,7 +117,7 @@ def pulse_ops_per_substep(config: IntegratorConfig, plus_z: bool) -> int:
         ops = 2 * r + 6 + 1 + 6 + 3
     else:
         ops = 4 * r + 12 + 15 + 18 + 3
-    ops += _NORMALIZE_OPS + 4  # the failed flag's compares
+    ops += _NORMALIZE_OPS + _FLUSH_OPS + 4  # the failed flag's compares
     if config.thermal:
         draws = noise_draws(config)
         ops += draws * _PHILOX_CALL_OPS + (12 if draws == 3 else 3)
@@ -149,9 +150,9 @@ def pulse_work(n_substeps: Tensor, config: IntegratorConfig, plus_z: bool) -> Tu
 # of the increment. Then the state's add; RK4's div6 (a multiply and two
 # FMAs, then a select); normalize: the squared norm (a multiply and two
 # adds), the select that gives sqrt a finite input, sqrt, the compare and
-# the division. A non-finite increment takes the fallback to +z by a branch,
-# which skips the division. The thermal sampler runs on producer warps and
-# adds no depth.
+# the division; the subnormal flush's compare and select. A non-finite
+# increment takes the fallback to +z by a branch, which skips the division.
+# The thermal sampler runs on producer warps and adds no depth.
 _RHS_DEPTH = {True: 10, False: 14}
 
 
@@ -167,11 +168,11 @@ def pulse_chain_depth(
     r = _RHS_DEPTH[plus_z] + int(config.thermal)
     stage_ops = {"euler": r + 1, "heun": 2 * r + 4, "rk4": 4 * r + 10}[config.method]
     simple = 3 * stage_ops + 2 if config.bf16_rhs else stage_ops
-    select = 1
+    select = 2  # normalize's, before sqrt; the subnormal flush's
     if config.method == "rk4":
         simple += 3 + (2 if config.bf16_rhs else 0)  # div6, widened and rounded in bf16
         select += 1
-    simple += 1 + 3 + 1  # the state's add; the squared norm; the compare
+    simple += 1 + 3 + 1 + 1  # the state's add; the squared norm; the compare; the flush's
     return {"simple": simple, "select": select, "div": int(not fallback), "sqrt": 1, "log": 0,
             "cos": 0}
 

@@ -8,7 +8,9 @@ computes its own (dt, n_substeps) from the reference step-size law
     dt  = span / n
 
 and advances n substeps; an env whose n is below the running index holds
-its state (the masked loop).
+its state (the masked loop). The carried state is flushed of float
+subnormals on entry and after every substep (``flush_subnormal``), a
+narrower flush than XLA's (see there).
 
 ``integrate_pulse`` dispatches on the device of the magnetization tensors:
 CUDA tensors go to the hand-written kernel (``ops/cuda_integrator.py``),
@@ -199,15 +201,33 @@ def _increment(m, dt, c, method: str, stage):
     )
 
 
+def flush_subnormal(x: Tensor) -> Tensor:
+    """``x`` with every subnormal element (magnitude below the smallest
+    normal of its dtype) replaced by +0: one compare and select, the same in
+    the kernel (``csrc/llgs_substep.cuh``). XLA flushes subnormals to zero
+    on the CPU and on a TPU, so the JAX package's pulse holds a pole state
+    with subnormal transverse components at the pole, a fixed point, where
+    IEEE arithmetic would let a destabilizing current grow them by ~e^58
+    over a few hundred substeps.
+
+    This flush is narrower than XLA's: it touches only the carried state
+    (XLA's also flushes every intermediate, the stage states and the
+    right-hand side's products), and it gives +0 where XLA keeps the sign
+    (-0). Parity with JAX is shown for pole states
+    (``tests/test_torch_research_tier.py``), not in general."""
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, 0.0, x)
+
+
 def _substep(m, dt, c, method: str, stage, stage_dtype):
     """One integration substep: the increment, computed in ``stage_dtype``
     (``dt``, ``c`` and ``stage`` already are), added to the carried state,
-    then normalize-with-fallback."""
+    then normalize-with-fallback and the subnormal flush."""
     mx, my, mz = m
     sm = tuple(x.to(stage_dtype) for x in m)
     dx, dy, dz = _increment(sm, dt, c, method, stage)
-    return normalize_with_fallback(mx + dx.to(mx.dtype), my + dy.to(my.dtype),
-                                   mz + dz.to(mz.dtype))
+    n = normalize_with_fallback(mx + dx.to(mx.dtype), my + dy.to(my.dtype),
+                                mz + dz.to(mz.dtype))
+    return tuple(flush_subnormal(x) for x in n)
 
 
 def _stage_fields(normals: Tensor, sigma: Tensor, config: IntegratorConfig, stage_dtype):
@@ -279,6 +299,7 @@ def _plain_loop(m0, span, current, params, config, seed, temperature, env_offset
     span = torch.as_tensor(span, dtype=dtype, device=mx.device)
     current = torch.as_tensor(current, dtype=dtype, device=mx.device)
     mx, my, mz, span, current = torch.broadcast_tensors(mx, my, mz, span, current)
+    mx, my, mz = flush_subnormal(mx), flush_subnormal(my), flush_subnormal(mz)
     check_env_offset(env_offset, mx.shape[0])
     params = params.to(dtype=dtype)
 

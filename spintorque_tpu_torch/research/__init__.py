@@ -4,11 +4,10 @@ PyTorch counterpart of ``spintorque_tpu/research``: the mesh-sharded
 switching and parameter sweeps, population optimizers whose population is
 one pulse-kernel launch, the benchmark suite and policy comparison,
 gradient optimal control and the comparative analysis, the meta-learner,
-annealer and hypothesis engine, the publication framework and the
-classical validation checks. The quantum half (the JAX package's
-``quantum_machine_learning``, ``quantum_spintronics`` and
-``QuantumValidationFramework``, which import its ``quantum`` package) is
-not ported yet.
+annealer and hypothesis engine, the publication framework, the validation
+checks, and the quantum half over ``spintorque_tpu_torch.quantum``:
+variational QML models, the QAOA device-design optimizer and its
+benchmark, and the quantum tier's validation checks.
 """
 
 from .sweeps import parameter_ladder_sweep, switching_probability_diagram
@@ -41,7 +40,17 @@ from .novel_algorithms import (
     QuantumInspiredSpintronicOptimizer,
 )
 from .publication_framework import FigureGenerator, PublicationFramework, StatisticalAnalyzer
-from .validation_framework import ResearchValidationFramework, ValidationCheck
+from .quantum_machine_learning import (
+    QuantumNeuralNetwork,
+    QuantumReinforcementLearning,
+    QuantumSpinOptimizer,
+)
+from .quantum_spintronics import QuantumSpintronicBenchmark, QuantumSpintronicOptimizer
+from .validation_framework import (
+    QuantumValidationFramework,
+    ResearchValidationFramework,
+    ValidationCheck,
+)
 
 __all__ = [
     "parameter_ladder_sweep",
@@ -69,6 +78,12 @@ __all__ = [
     "FigureGenerator",
     "PublicationFramework",
     "StatisticalAnalyzer",
+    "QuantumNeuralNetwork",
+    "QuantumReinforcementLearning",
+    "QuantumSpinOptimizer",
+    "QuantumSpintronicBenchmark",
+    "QuantumSpintronicOptimizer",
+    "QuantumValidationFramework",
     "ResearchValidationFramework",
     "ValidationCheck",
 ]

@@ -1,6 +1,6 @@
 """The CUDA pulse kernels (K1 in float32, K6 with bf16 stage arithmetic,
-K5 on a shard) against their plain versions, and the PPO trainer, on the
-card.
+K5 on a shard) against their plain versions, the PPO trainer, and the
+quantum tier's integer products, devices and matmul precision, on the card.
 
 Every test here carries the ``cuda`` marker and skips where torch sees no
 CUDA device. This file imports no JAX, so it also runs where the JAX
@@ -38,9 +38,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _params(device, axis=(0.0, 0.0, 1.0)):
+def _params(device, axis=(0.0, 0.0, 1.0), **over):
     vals = dict(saturation_magnetization=800e3, damping=0.01, uniaxial_anisotropy=1.2e6,
                 volume=1e-23, polarization=0.7)
+    vals.update(over)
     p = {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in vals.items()}
     return LLGSParams(**p, easy_axis=torch.tensor(axis, dtype=torch.float32, device=device))
 
@@ -180,6 +181,99 @@ def test_train_step_launches_the_pulse_kernel_without_host_sync(cuda, bf16_rhs):
     assert torch.isfinite(metrics["loss"]).item()
     out = measure_train_throughput(trainer, warmup=0, steps=1, sync_debug_mode="error")
     assert out["rollout_ms"][0] > 0 and out["update_ms"][0] > 0
+
+
+@pytest.mark.parametrize("method", ["euler", "heun", "rk4"])
+def test_kernel_flushes_subnormal_pole_states_as_the_plain_loop(cuda, method):
+    """Pole states whose transverse components are float32 subnormals, under
+    currents that destabilize their pole: the kernel flushes the state's
+    subnormals on entry and after every substep, as the plain loop does (and
+    XLA, which the JAX package runs on), so both hold every such state at its
+    pole exactly, and agree bit for bit on the rest of the batch."""
+    B = 256
+    m0, spans, _ = _setup(B, cuda, seed=9)
+    tiny = torch.tensor([1e-38, -5e-39, 1e-45, 3e-40], dtype=torch.float32, device=cuda)
+    mx, my, mz = (x.clone() for x in m0)
+    poles = torch.arange(128, device=cuda)
+    mx[poles] = tiny[poles % 4]
+    my[poles] = -tiny[(poles + 1) % 4]
+    mz[poles] = torch.where(poles < 64, -1.0, 1.0)
+    spans[:] = 2.5e-10
+    cur = torch.where(torch.arange(B, device=cuda) % 2 == 0, -2.7e-7, 2.7e-7).float()
+    p = _params(cuda, volume=1e-24, uniaxial_anisotropy=8e5)
+    cfg = IntegratorConfig(method=method, max_substeps=512)
+    got = integrate_pulse((mx, my, mz), spans, cur, p, cfg)
+    want = integrate_pulse_plain((mx, my, mz), spans, cur, p, cfg)
+    for a, b in zip(got.m, want.m):
+        assert torch.equal(a, b)
+    assert torch.equal(got.n_substeps, want.n_substeps)
+    assert torch.equal(got.failed, want.failed)
+    assert (got.m[0][:128] == 0).all() and (got.m[1][:128] == 0).all()
+    assert torch.equal(got.m[2][:128], mz[:128])
+
+
+def test_surface_code_logical_failure_on_the_card(cuda):
+    """The surface code's integer products on the card (CUDA torch has no
+    integer matmul: syndromes are float32 products, the logical overlap a
+    product and a sum) equal the CPU's over all 512 error patterns; the
+    Monte-Carlo rate runs on the card's generator."""
+    from spintorque_tpu_torch.quantum import SurfaceCodeErrorCorrection
+
+    errors = (torch.arange(512)[:, None] >> torch.arange(9)) & 1
+    card, cpu = SurfaceCodeErrorCorrection(cuda), SurfaceCodeErrorCorrection("cpu")
+    for kind in ("x", "z"):
+        for dtype in (torch.int32, torch.int64):
+            e = errors.to(dtype)
+            assert torch.equal(card.measure_syndrome(e.to(cuda), kind).cpu(),
+                               cpu.measure_syndrome(e, kind))
+            assert torch.equal(card.logical_failure(e.to(cuda), kind).cpu(),
+                               cpu.logical_failure(e, kind))
+    rate = card.logical_error_rate(0.01, n_trials=100_000)
+    assert 0.0 < rate["logical_x_rate"] < 0.01 and 0.0 < rate["logical_z_rate"] < 0.01
+
+
+def test_quantum_entry_points_default_to_the_card(cuda):
+    """A circuit built without a device runs on the card whatever it is
+    given: CPU angles, a ``from_complex`` state, and its unitary, and
+    agrees with the same circuit on the CPU."""
+    import numpy as np
+
+    from spintorque_tpu_torch.quantum import QuantumCircuit
+    from spintorque_tpu_torch.quantum import statevector as sv
+
+    circ = QuantumCircuit(3).h(0).ry(1, 0).cnot(0, 2).rz(2, 1)
+    cpu_circ = QuantumCircuit(3, circ.gates, device="cpu")
+    angles = torch.tensor([[0.3, -1.1], [2.0, 0.7]])
+    psi = sv.from_complex(np.full(8, 8 ** -0.5))
+    assert psi.is_cuda and sv.gate_pair(sv.GATES["H"]).is_cuda
+    for got, want in ((circ.run(angles), cpu_circ.run(angles)),
+                      (circ.run(angles, state=psi), cpu_circ.run(angles, state=psi.cpu())),
+                      (circ.run(angles.cuda(), state=psi.cpu()),
+                       cpu_circ.run(angles, state=psi.cpu()))):
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(circ.unitary(np.zeros(2)), cpu_circ.unitary(np.zeros(2)),
+                               atol=1e-6)
+
+
+def test_gate_products_refuse_reduced_precision_matmuls(cuda):
+    """The gate products must be full float32 (the JAX package asks for
+    ``Precision.HIGHEST``): with TF32 matmuls turned on, a gate on a card
+    state raises, and it runs again once they are off."""
+    from spintorque_tpu_torch.quantum import statevector as sv
+
+    state = sv.zero_state(4, device=cuda)
+    h = sv.gate_pair(sv.GATES["H"], cuda)
+    before = torch.get_float32_matmul_precision()
+    try:
+        for precision in ("high", "medium"):
+            torch.set_float32_matmul_precision(precision)
+            with pytest.raises(RuntimeError, match="full float32"):
+                sv.apply_gate(state, h, (0,))
+    finally:
+        torch.set_float32_matmul_precision(before)
+    assert torch.isclose(sv.probabilities(sv.apply_gate(state, h, (0,))).sum(),
+                         torch.tensor(1.0, device=cuda))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -16,7 +16,8 @@ test_visualization.py, on the CPU. Parity:
     futures equal ``solve_batch`` bit for bit.
 
 Also: the first kernel build runs once when 8 threads reach it together
-(a fake compiler stands in for nvcc), and the launch counters count every
+(a fake compiler stands in for nvcc), another source tree's library builds
+beside it and can take its place, and the launch counters count every
 increment from many threads.
 """
 
@@ -82,6 +83,41 @@ def test_first_build_runs_once_under_threads(monkeypatch, tmp_path):
     assert libs[0].path.is_file() and libs[0].path.parent == tmp_path
     assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
         [libs[0].path.name, libs[0].path.with_suffix(".log").name])
+
+
+def test_library_of_other_sources_builds_beside_and_takes_its_place(monkeypatch, tmp_path):
+    """``build_library`` of another source tree (a parent commit's) builds
+    beside the checkout's library under its own digest, and
+    ``use_library`` makes the wrappers bind their entry points from it."""
+    built = []
+
+    def fake_run(cmd):
+        built.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return ""
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_LIBRARY", None)
+    monkeypatch.setattr(_build, "_KERNEL_FNS", {})
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "_run", fake_run)
+    monkeypatch.setattr(_build.ctypes, "CDLL",
+                        lambda path: types.SimpleNamespace(path=path, entry=path))
+    monkeypatch.setattr(_build, "_bind", lambda lib: None)
+    other = tmp_path / "csrc"
+    other.mkdir()
+    for src in _build._sources():
+        (other / src.name).write_bytes(src.read_bytes())
+    (other / "llgs_substep.cuh").write_text("// another version\n")
+    own = _build.load_library()
+    theirs = _build.build_library(other)
+    assert theirs.path.parent == own.path.parent and theirs.path != own.path
+    assert any(str(other) in " ".join(cmd) for cmd in built)
+    assert _build.kernel_fn("entry") == str(own.path)
+    _build.use_library(theirs)
+    assert _build.load_library() is theirs and _build.kernel_fn("entry") == str(theirs.path)
+    _build.use_library(own)
+    assert _build.kernel_fn("entry") == str(own.path)
 
 
 def test_launch_counter_counts_every_thread():

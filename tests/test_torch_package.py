@@ -5,7 +5,8 @@ or the JAX package (the card's machine has neither); the port's
 ``physics``, ``deployment``, ``visualization`` and ``utils`` and top-level
 namespaces carry every name the JAX package exports from the modules
 ported so far, and every module of the shell has its JAX counterpart's
-public names.
+public names. The ``quantum`` and ``research`` namespaces, and each of the
+quantum tier's modules, export exactly the JAX package's names.
 """
 
 import ast
@@ -51,13 +52,42 @@ def test_package_exports_the_jax_packages_names():
     assert not missing
 
 
-@pytest.mark.parametrize("package", ["deployment", "visualization", "utils"])
+@pytest.mark.parametrize("package", ["deployment", "visualization", "utils", "quantum",
+                                     "research"])
 def test_subpackage_exports_every_jax_name(package):
     ours = importlib.import_module(f"spintorque_tpu_torch.{package}")
     theirs = importlib.import_module(f"spintorque_tpu.{package}")
     assert not sorted(set(theirs.__all__) - set(ours.__all__))
     for name in theirs.__all__:
         assert hasattr(ours, name), name
+
+
+@pytest.mark.parametrize("package", ["quantum", "research"])
+def test_quantum_and_research_exports_equal_the_jax_packages(package):
+    """The quantum tier's 23 names and the research tier's (its six quantum
+    names included): the same set as the JAX package's ``__all__``."""
+    ours = importlib.import_module(f"spintorque_tpu_torch.{package}")
+    theirs = importlib.import_module(f"spintorque_tpu.{package}")
+    assert sorted(ours.__all__) == sorted(theirs.__all__)
+    if package == "quantum":
+        assert len(ours.__all__) == 23
+
+
+QUANTUM_MODULES = [
+    "quantum.statevector", "quantum.circuits", "quantum.error_correction",
+    "quantum.optimization", "quantum.energy_landscape", "quantum.hybrid_computing",
+    "quantum.advantage_verification", "quantum.benchmarking",
+    "research.quantum_machine_learning", "research.quantum_spintronics",
+    "research.validation_framework",
+]
+
+
+@pytest.mark.parametrize("module", QUANTUM_MODULES)
+def test_quantum_module_has_the_jax_names(module):
+    ours = importlib.import_module(f"spintorque_tpu_torch.{module}")
+    theirs = importlib.import_module(f"spintorque_tpu.{module}")
+    assert sorted(ours.__all__) == sorted(theirs.__all__)
+    assert not [n for n in theirs.__all__ if not hasattr(ours, n)]
 
 
 SHELL_MODULES = [

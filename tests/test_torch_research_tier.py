@@ -14,7 +14,12 @@ Counterpart of the nine classical tests of tests/unit/test_research_tier.py
     thresholds, their random streams being torch's;
   * ``ResearchValidationFramework`` in float64 (as the JAX test runs under
     x64): every check passes; in float32 (the card's dtype) the other four
-    pass and the measured convergence order is below 2.
+    pass and the measured convergence order is below 2;
+  * a pole state with subnormal transverse components: the plain loop and
+    the trajectory stay exactly at the pole, as JAX (XLA flushes
+    subnormals) does; and the default optimal-control controller's
+    starting draw on the card, replayed: every restart finite, restart 9's
+    loss and gradient against ``jax.grad`` at rtol 1e-6.
 
 Cut for time: ``test_optimal_control_switches_and_saves_energy`` runs 4 Adam
 iterations where the JAX test runs 40 (each iteration is a forward and a
@@ -104,16 +109,20 @@ def test_optimal_control_loss_and_gradient_equal_jax():
 
 
 def test_subnormal_states_follow_ieee_where_xla_flushes():
-    """A recorded difference: a state at the -z pole whose transverse
-    components are float32 subnormals (1e-38). XLA on the CPU flushes them
-    to zero (as a TPU does), so the JAX pulse stays exactly at the pole, a
-    fixed point; torch keeps them (IEEE, as NumPy and the CUDA kernel do),
-    and a current that destabilizes the pole grows them by ~e^58 over one
-    optimal-control segment. An optimal-control restart that passes through
-    such a state leaves it in the port and not in JAX."""
+    """A state at the -z pole whose transverse components are float32
+    subnormals (1e-38). XLA on the CPU flushes them to zero (as a TPU does),
+    so the JAX pulse stays exactly at the pole, a fixed point. IEEE
+    arithmetic would keep them, and a current that destabilizes the pole
+    would grow them by ~e^58 over one optimal-control segment; the port
+    flushes the state's subnormals on entry and after every substep, so its
+    plain loop and its trajectory stay at the pole exactly as JAX does."""
     from spintorque_tpu.physics import IntegratorConfig as JConfig
     from spintorque_tpu.physics import integrate_pulse as jax_pulse
-    from spintorque_tpu_torch.physics import IntegratorConfig, integrate_pulse_plain
+    from spintorque_tpu_torch.physics import (
+        IntegratorConfig,
+        integrate_pulse_plain,
+        integrate_pulse_trajectory,
+    )
 
     m = np.array([[1e-38], [1e-38], [-1.0]], np.float32)
     kw = dict(method="rk4", max_substeps=512)
@@ -121,11 +130,61 @@ def test_subnormal_states_follow_ieee_where_xla_flushes():
     want = jax.jit(lambda: jax_pulse(
         tuple(jnp.asarray(x) for x in m), jnp.asarray([2.5e-10], jnp.float32),
         jnp.asarray([-2.7e-7], jnp.float32), jax_params_from_dict(jdp), JConfig(**kw)))()
-    got = integrate_pulse_plain(tuple(torch.from_numpy(x) for x in m), torch.tensor([2.5e-10]),
-                                torch.tensor([-2.7e-7]), params_from_dict(jdp, device="cpu"),
-                                IntegratorConfig(**kw))
+    args = (tuple(torch.from_numpy(x) for x in m), torch.tensor([2.5e-10]),
+            torch.tensor([-2.7e-7]), params_from_dict(jdp, device="cpu"), IntegratorConfig(**kw))
+    got = integrate_pulse_plain(*args)
+    traj_result, traj = integrate_pulse_trajectory(*args)
     assert [float(x[0]) for x in want.m] == [0.0, 0.0, -1.0]
-    assert 1e-14 < abs(float(got.m[0][0])) < 1e-10 and float(got.m[2][0]) == -1.0
+    assert [float(x[0]) for x in got.m] == [0.0, 0.0, -1.0]
+    assert [float(x[0]) for x in traj_result.m] == [0.0, 0.0, -1.0]
+    assert traj[-1, :, 0].tolist() == [0.0, 0.0, -1.0]
+    assert int(got.n_substeps[0]) == int(want.n_substeps[0])
+
+
+# The 16 x 3 starting angles of the default optimal-control controller's
+# restarts in chip_smoke.py: 0.5 * N(0, 1) from a CUDA torch.Generator seeded
+# with 0 (torch 2.11 + CUDA 12.8 on an NVIDIA H100 80GB HBM3). Before the
+# subnormal flush, restart 9 left the -z pole through subnormal transverse
+# components and its gradient overflowed to NaN on the card.
+CARD_THETA0 = np.array([
+    [-0.15519786800018825, -0.01716406615204757, 0.08779736365952064],
+    [-1.1401907173518908, 0.2519297577669567, 0.27981234197806093],
+    [-0.037481062885915316, 0.48453333432952395, -0.11782983762947494],
+    [-0.22910378980515736, 0.2830371547157912, 0.6425512104734218],
+    [-0.933334922377163, -0.015613344602770494, 0.6216551080417145],
+    [0.6844462320800497, -0.5376525757150841, -0.007879856143821543],
+    [-0.7240646801299467, -0.6544344522034166, 0.3489943665054127],
+    [-0.16502089480222942, -0.38541289833691267, -0.2472827367579652],
+    [1.5851110687420966, 0.01936598743646253, -0.7863801145514805],
+    [0.6492488047836286, -0.2209275917876018, -0.34824676846598884],
+    [-0.7001201248507641, -0.04419710148779297, -0.11844023677749305],
+    [-0.2978150742813435, -0.013171422945612087, 0.02728838888524853],
+    [-0.3541242094494132, 0.03210986113971867, 0.6415015051084457],
+    [-0.9363852418603364, 0.3780867446450698, -0.3172339407935007],
+    [0.5587883635645503, 0.6690922505365962, 0.09967891299401087],
+    [0.03355086507651537, -0.20796367044473613, 0.07338595273937419],
+])
+
+
+def test_optimal_control_replays_the_cards_draw():
+    """The default controller's task and device, from the card's seed-0
+    draw: every restart's loss and gradient are finite, and restart 9's
+    (the one that passes the pole) agree with ``jax.grad`` at the
+    tolerance of the optimal-control parity test."""
+    params = dict(DEVICE, damping=0.01, uniaxial_anisotropy=8e5)
+    analysis = ComparativeAnalysis(params_from_dict(params, device="cpu"))
+    m0, tgt = analysis.default_tasks(1)[0]
+    oc = OptimalControlBaseline(analysis.params, n_segments=3)
+    joc = JOptimalControl(jax_params_from_dict(params), n_segments=3)
+    assert oc.max_current == joc.max_current
+    th = torch.tensor(CARD_THETA0, requires_grad=True)
+    losses = oc.loss(oc.max_current * torch.tanh(th), m0, tgt)
+    (grad,) = torch.autograd.grad(losses.sum(), th)
+    assert torch.isfinite(losses).all() and torch.isfinite(grad).all()
+    want, want_grad = jax.jit(jax.value_and_grad(
+        lambda t: joc.loss(joc.max_current * jnp.tanh(t), m0, tgt)))(jnp.asarray(CARD_THETA0[9]))
+    np.testing.assert_allclose(float(losses[9]), float(want), rtol=1e-6)
+    np.testing.assert_allclose(grad[9].numpy(), np.asarray(want_grad), rtol=1e-6, atol=1e-9)
 
 
 def test_physics_informed_shaping_is_potential_based():
