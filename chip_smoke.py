@@ -160,6 +160,7 @@ sqrt, log, compare or select one, so a lower bound), the probe's one add an
 element, K7's a plain FADD and FMUL a step.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -879,6 +880,289 @@ def analysis_phase(dev, smi):
           f"train state resumes bit for bit; two steps of one state equal bit for bit, thermal "
           f"and auto-reset on, with {pure} envs reset; analysis phase {out['seconds']:.1f} s  "
           f"[{smi}]")
+    return out
+
+
+# The subnormal cases of tests/test_torch_subnormal_parity.py: the pulse's
+# subnormal test device, a current that destabilizes the -z pole, and one
+# that weakly stabilizes it.
+SUBNORMAL_DEVICE = dict(volume=1e-24, saturation_magnetization=800e3, damping=0.01,
+                        uniaxial_anisotropy=8e5, polarization=0.7, easy_axis=[0.0, 0.0, 1.0])
+SUBNORMAL_CASES = (  # (name, span s, current A/m^2, transverse start)
+    ("pole 0.25 ns", 2.5e-10, -2.7e-7, None),
+    ("pole 5 ns", 5e-9, -2.7e-7, None),
+    ("decay 0.25 ns", 2.5e-10, 2e-12, 1e-30),
+)
+
+
+@contextlib.contextmanager
+def without_flush(module, op=lambda x: x):
+    """The parent tree's code path in ``module``: its ``flush_subnormal``
+    replaced by ``op`` (the op that stood there before the flush: a clone
+    in the array env's sequential sweep, nothing elsewhere). For the
+    before-and-after comparison of ``subnormal_phase`` only."""
+    saved = module.flush_subnormal
+    module.flush_subnormal = op
+    try:
+        yield
+    finally:
+        module.flush_subnormal = saved
+
+
+def subnormal_phase(dev, smi, B=4096):
+    """The plain-torch state loops on the card from float32 subnormal states,
+    against the CPU port, and before and after their flush of subnormals.
+
+    * ``integrate_adaptive`` (rk45, midpoint, radau) on B rows at the -z
+      pole, each with its own subnormal transverse parts (log-uniform over
+      float32's subnormals, either sign), over 0.25 and 5 ns of a
+      destabilizing current; and from (1e-30, 1e-30, -1) under a weakly
+      stabilizing one. Every row must end at exactly the pole (by
+      magnitude), with success and the CPU port's accepted and rejected
+      step counts for the case's single state. Then ``AdaptiveLLGSSolver``
+      (RK45) from the pole. The parent's path (no flush) runs the 0.25 ns
+      pole case again, capped at 64 iterations, to show the fault on the
+      card; the profiler counts the kernels of one chunk of 8 iterations of
+      the decay case with and without the flush.
+    * The array env, 4 x 4 at B in both coupling modes: rows of +z and -z
+      devices with subnormal transverse parts, 20 'global' steps of +-2e6
+      A/m^2. Every device must stay at its pole exactly, and agree with the
+      CPU port within 1e-5 (pattern, observation, reward); the parent's
+      path shows the fault. Then ms and kernels per step of the main
+      configuration (individual actions), parent's path and this one in
+      turns (parent, this, this, parent), 16 steps each.
+    * The racetrack (no flush: the CPU tests show none is needed): skyrmions
+      90 radii off the pinning centerline (every exp(-dist / r) subnormal)
+      with subnormal velocities, 6 steps, card against CPU within 1e-5;
+      then ms and kernels per step of the main configuration.
+
+    K1 is launched nowhere here: the loops are plain torch (checked)."""
+    import numpy as np
+    import torch
+
+    from spintorque_tpu_torch import convert
+    from spintorque_tpu_torch.envs import (
+        ArrayEnvConfig,
+        SkyrmionEnvConfig,
+        SkyrmionRacetrackEnv,
+        SpinTorqueArrayEnv,
+    )
+    from spintorque_tpu_torch.envs import array as array_module
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+    from spintorque_tpu_torch.physics import AdaptiveLLGSSolver, integrate_adaptive
+    from spintorque_tpu_torch.physics import adaptive as adaptive_module
+    from spintorque_tpu_torch.physics.solver import params_from_dict
+
+    out = {}
+    t_phase = time.perf_counter()
+    ci.PULSE_LAUNCHES.reset()
+    rng = np.random.default_rng(47)
+    least = float(np.finfo(np.float32).smallest_subnormal)
+    tiny = float(np.finfo(np.float32).tiny)
+
+    def subnormals(shape):
+        mag = np.exp(rng.uniform(np.log(least), np.log(tiny), shape))
+        return torch.from_numpy(np.where(rng.random(shape) < 0.5, -mag, mag).astype(np.float32))
+
+    def at_pole(m):
+        """Every component exactly 0 or 1 by magnitude: the pole, flushed."""
+        mags = [x.abs() for x in m]
+        return bool(((mags[0] == 0) & (mags[1] == 0) & (mags[2] == 1)).all())
+
+    # ---- the adaptive methods
+    p_card = params_from_dict(SUBNORMAL_DEVICE, device=dev)
+    p_cpu = params_from_dict(SUBNORMAL_DEVICE, device="cpu")
+    rows = []
+    for method in ("rk45", "midpoint", "radau"):
+        for case, span, cur, start in SUBNORMAL_CASES:
+            if start is None:
+                m0 = (subnormals(B), subnormals(B), torch.full((B,), -1.0))
+                one = (torch.tensor([1e-38]), torch.tensor([1e-38]), torch.tensor([-1.0]))
+            else:
+                m0 = tuple(torch.full((B,), v) for v in (start, start, -1.0))
+                one = tuple(x[:1] for x in m0)
+            args = (torch.full((B,), span, device=dev), torch.full((B,), cur, device=dev))
+            kw = dict(max_steps=4000, method=method)
+            want = integrate_adaptive(one, torch.tensor([span]), torch.tensor([cur]), p_cpu, **kw)
+            card_m0 = tuple(x.to(dev) for x in m0)
+            got, ms = timed(lambda: integrate_adaptive(card_m0, *args, p_card, **kw))
+            steps, rejected = int(want.n_steps[0]), int(want.n_rejected[0])
+            check(at_pole(want.m) and bool(want.success[0]),
+                  f"{method} {case}: the CPU port left the pole: {want}")
+            check(at_pole(got.m) and bool(got.success.all())
+                  and bool((got.n_steps == steps).all())
+                  and bool((got.n_rejected == rejected).all()),
+                  f"{method} {case} on the card: pole {at_pole(got.m)}, steps "
+                  f"{got.n_steps.unique().tolist()} vs the CPU's {steps}, rejected "
+                  f"{got.n_rejected.unique().tolist()} vs {rejected}")
+            row = dict(method=method, case=case, steps=steps, rejected=rejected, ms=ms,
+                       iterations=got.iterations, host_reads=got.host_reads)
+            if start is None and span < 1e-9:
+                # Twice the iterations the flushed solve takes.
+                with without_flush(adaptive_module):
+                    before, before_ms = timed(lambda: integrate_adaptive(
+                        card_m0, *args, p_card, **dict(kw, max_steps=64)))
+                row["before"] = dict(
+                    ms=before_ms, iterations=before.iterations,
+                    steps=sorted(set(before.n_steps.tolist())),
+                    success=float(before.success.float().mean()),
+                    mz_range=[float(before.m[2].min()), float(before.m[2].max())],
+                    transverse_max=float(torch.maximum(before.m[0].abs(),
+                                                       before.m[1].abs()).max()))
+            if start is not None:
+                # One chunk of 8 iterations, the same iterations both ways.
+                one_chunk = dict(kw, max_steps=8)
+                k_after, _ = kernels_per_call(lambda: integrate_adaptive(
+                    card_m0, *args, p_card, **one_chunk))
+                with without_flush(adaptive_module):
+                    k_before, _ = kernels_per_call(lambda: integrate_adaptive(
+                        card_m0, *args, p_card, **one_chunk))
+                row["kernels_8_iterations"] = dict(before=k_before, after=k_after)
+            rows.append(row)
+            b = row.get("before")
+            k = row.get("kernels_8_iterations")
+            print(f"integrate_adaptive {method} {case} B={B} float32 from subnormal states: "
+                  f"{ms:.0f} ms, {got.iterations} iterations, every row at the pole with the "
+                  f"CPU port's {steps} steps and {rejected} rejections"
+                  + (f"; without the flush (the parent's path) {b['ms']:.0f} ms, "
+                     f"{b['iterations']} iterations (at most 64), steps {b['steps'][:4]}, "
+                     f"success {b['success']:.3f}, m_z {b['mz_range']}, |m_xy| up to "
+                     f"{b['transverse_max']:.3g}" if b else "")
+                  + (f"; CUDA kernels and copies of 8 iterations {k['before']} -> "
+                     f"{k['after']}" if k else "") + f"  [{smi}]")
+    solver = AdaptiveLLGSSolver(device=dev)
+    m_pole = torch.stack([subnormals(B), subnormals(B), torch.full((B,), -1.0)], -1)
+    res = solver.solve(m_pole, (0.0, 2.5e-10), SUBNORMAL_DEVICE, current=-2.7e-7)
+    want = next(r for r in rows if r["method"] == "rk45" and r["case"] == "pole 0.25 ns")
+    check(res["success"] and at_pole(res["m"].unbind(-1))
+          and bool((res["n_steps"] == want["steps"]).all()),
+          "AdaptiveLLGSSolver (RK45) on the card left the pole or took other steps")
+    out["adaptive"] = rows
+
+    # ---- the array env: the subnormal case, card against CPU, then timing
+    out["array"] = {}
+    for mode in ("sequential", "simultaneous"):
+        cfg = ArrayEnvConfig(autoreset=False, action_mode="global", coupling_update=mode)
+        n = cfg.n_devices
+        rows_z = torch.where(torch.arange(n) // cfg.cols % 2 == 0, 1.0, -1.0)
+        pattern = torch.cat([subnormals((B, n, 2)), rows_z.expand(B, n)[..., None]], -1)
+        currents = torch.from_numpy(rng.choice([-2e6, 2e6], (20, B)).astype(np.float32))
+        actions = torch.stack([torch.full_like(currents, 5e-9), currents], -1)
+        finals = {}
+        for side, device, flush in (("card", dev, True), ("cpu", "cpu", True),
+                                    ("card before", dev, False)):
+            env = SpinTorqueArrayEnv(batch_size=B, config=cfg, device=device)
+            state, _ = env.reset(seed=3)
+            state = dataclasses.replace(state, pattern=pattern.to(device))
+            with (contextlib.nullcontext() if flush else without_flush(
+                    array_module, torch.clone if mode == "sequential" else (lambda x: x))):
+                for a in actions:
+                    state, ts = env.step(state, a.to(device))
+            finals[side] = (state.pattern.cpu(), ts.obs.cpu(), ts.reward.cpu())
+        (p_card_, o_card, r_card), (p_cpu_, o_cpu, r_cpu) = finals["card"], finals["cpu"]
+        check(at_pole(p_card_.unbind(-1)) and torch.equal(p_card_[..., 2].sign(),
+                                                          pattern[..., 2].sign()),
+              f"array {mode}: a subnormal pole device left its pole on the card")
+        pattern_diff, obs_diff = max_diff(p_card_, p_cpu_), max_diff(o_card, o_cpu)
+        check(pattern_diff < 1e-5 and obs_diff < 1e-5,
+              f"array {mode} subnormal case: card vs CPU pattern {pattern_diff}, obs {obs_diff}")
+        np.testing.assert_allclose(r_card.numpy(), r_cpu.numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"array {mode} subnormal case: card vs CPU reward")
+        left = float((finals["card before"][0][..., 2] - pattern[..., 2]).abs().max())
+        out["array"][f"4x4 {mode} subnormal"] = dict(
+            pattern_diff=pattern_diff, obs_diff=obs_diff, before_max_mz_change=left)
+        print(f"SpinTorqueArray-v0 4x4 {mode} B={B}, +-z rows with subnormal transverse parts, "
+              f"20 global steps of +-2e6 A/m^2: every device at its pole exactly; card vs CPU "
+              f"pattern {pattern_diff:.1e}, obs {obs_diff:.1e}; without the flush (the "
+              f"parent's path) m_z moved by up to {left:.3f}  [{smi}]")
+
+    def individual_actions(cfg, n_steps):
+        idx = rng.integers(0, cfg.n_devices, (n_steps, B))
+        cur = rng.uniform(-cfg.max_current, cfg.max_current, (n_steps, B))
+        dur = rng.uniform(1e-12, cfg.max_duration, (n_steps, B))
+        return torch.from_numpy(np.stack([idx, cur, dur], -1).astype(np.float32)).to(dev)
+
+    def step_cost(env, acts, state):
+        env.step(state, acts[0])  # warmup
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = state
+        for a in acts:
+            s = env.step(s, a)[0]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(acts)
+        n_kernels, busy_ms = kernels_per_call(lambda: env.step(state, acts[0]))
+        return dict(ms_per_step=ms, kernels_per_step=n_kernels, device_ms_per_step=busy_ms)
+
+    for mode in ("sequential", "simultaneous"):
+        cfg = ArrayEnvConfig(autoreset=False, coupling_update=mode)
+        env = SpinTorqueArrayEnv(batch_size=B, config=cfg, device=dev)
+        acts = individual_actions(cfg, 16)
+        state, _ = env.reset(seed=8)
+        parent_op = torch.clone if mode == "sequential" else (lambda x: x)
+        turns = {"before": [], "after": []}
+        for side in ("before", "after", "after", "before"):
+            with (without_flush(array_module, parent_op) if side == "before"
+                  else contextlib.nullcontext()):
+                turns[side].append(step_cost(env, acts, state))
+        rec = {side: dict(ms_per_step=[t["ms_per_step"] for t in ts],
+                          kernels_per_step=ts[0]["kernels_per_step"],
+                          device_ms_per_step=[t["device_ms_per_step"] for t in ts])
+               for side, ts in turns.items()}
+        out["array"][f"4x4 {mode}"] = rec
+        print(f"SpinTorqueArray-v0 4x4 {mode} B={B} (individual actions, 16 steps; in turns "
+              f"before, after, after, before): before the flush "
+              f"{[round(x, 3) for x in rec['before']['ms_per_step']]} ms/step, "
+              f"{rec['before']['kernels_per_step']} kernels a step; after "
+              f"{[round(x, 3) for x in rec['after']['ms_per_step']]} ms/step, "
+              f"{rec['after']['kernels_per_step']} kernels a step  [{smi}]")
+
+    # ---- the racetrack: subnormal velocities far off the pinning sites
+    width = 4e-6
+    cfg = SkyrmionEnvConfig(autoreset=False, include_thermal=False, track_width=width,
+                            n_skyrmions=2)
+    r = cfg.skyrmion_radius
+    x = torch.from_numpy(rng.uniform(r, cfg.track_length - r, (B, 2)).astype(np.float32))
+    pos = torch.stack([x, torch.full_like(x, width / 2 + 90 * r)], -1)
+    vel = subnormals((B, 2, 2))
+    j = rng.uniform(-1e12, 1e12, (6, B, 2))
+    j[:, : B // 2] = 0.0  # half the tracks undriven
+    acts = np.concatenate([j, np.zeros((6, B, 2)), rng.uniform(1e-12, 2e-9, (6, B, 1))], -1)
+    acts = torch.from_numpy(acts.astype(np.float32))
+    finals = {}
+    for side, device in (("card", dev), ("cpu", "cpu")):
+        env = SkyrmionRacetrackEnv(batch_size=B, config=cfg, device=device)
+        state, _ = env.reset(seed=3)
+        state = dataclasses.replace(state, positions=pos.to(device), velocities=vel.to(device))
+        for a in acts:
+            state, ts = env.step(state, a.to(device))
+        finals[side] = (state.positions.cpu(), state.velocities.cpu(), ts.reward.cpu())
+    (pc, vc, rc), (pp, vp, rp) = finals["card"], finals["cpu"]
+    pos_diff = max_diff(pc, pp) / cfg.track_length
+    check(pos_diff < 1e-5 and torch.equal(pc[: B // 2], pos[: B // 2]),
+          f"racetrack subnormal case: card vs CPU positions / L {pos_diff}, or an undriven "
+          f"skyrmion moved")
+    np.testing.assert_allclose(vc.numpy(), vp.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(vp.abs().max()),
+                               err_msg="racetrack subnormal case: card vs CPU velocities")
+    np.testing.assert_allclose(rc.numpy(), rp.numpy(), rtol=1e-5,
+                               err_msg="racetrack subnormal case: card vs CPU reward")
+    main_cfg = SkyrmionEnvConfig(autoreset=False)
+    env = SkyrmionRacetrackEnv(batch_size=B, config=main_cfg, device=dev)
+    state, _ = env.reset(seed=10)
+    a = np.concatenate([rng.uniform(-main_cfg.max_current, main_cfg.max_current, (16, B, 2)),
+                        rng.uniform(-main_cfg.max_gradient, main_cfg.max_gradient, (16, B, 2)),
+                        rng.uniform(0.0, 2e-9, (16, B, 1))], -1)
+    cost = step_cost(env, torch.from_numpy(a.astype(np.float32)).to(dev), state)
+    out["racetrack"] = dict(subnormal_positions_over_length_diff=pos_diff, **cost)
+    print(f"SkyrmionRacetrack-v0 B={B}, skyrmions 90 radii off the pinning sites with "
+          f"subnormal velocities, 6 steps: card vs CPU positions / L {pos_diff:.1e}, undriven "
+          f"skyrmions kept their bits; no flush added (before = after): "
+          f"{cost['ms_per_step']:.3f} ms/step, {cost['kernels_per_step']} kernels a step "
+          f"(pinning and thermal on, 16 steps)  [{smi}]")
+    check(ci.PULSE_LAUNCHES.count == 0, "the subnormal phase launched K1")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"subnormal phase {out['seconds']:.1f} s  [{smi}]")
     return out
 
 
@@ -2532,6 +2816,7 @@ def main():
     # ---------------------------------------------- 15. the analysis physics
     RECORD["analysis"] = analysis_phase(dev, smi)
     solver_launches = RECORD["analysis"]["solver"]["launches"][0]
+    RECORD["subnormal"] = subnormal_phase(dev, smi)
 
     # ------------------------------------ 16. the command line and serving
     write_record()  # the serving endpoint's readiness evidence

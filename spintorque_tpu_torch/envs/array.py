@@ -16,9 +16,12 @@ the JAX package are kept:
 The per-device law is the reference's inline 10-substep Euler with a
 hardcoded alpha = 0.01 and gamma, and tau = 0.1 J m x (m x z); devices
 driven by |J| <= 1e-12 stay exactly put; the energy is J^2 A^2 R dt at the
-pre-update resistance of each affected device. The 'global' action mode
-reads the current from action[1] and always pulses 1 ns, and thermal
-fluctuations are accepted but never applied, as in the reference.
+pre-update resistance of each affected device. Each sweep first flushes
+the pattern's float subnormals to 0 (``physics.integrator.flush_subnormal``)
+as XLA does, so a device at a pole with subnormal transverse parts stays
+there, as in the JAX package. The 'global' action mode reads the current
+from action[1] and always pulses 1 ns, and thermal fluctuations are
+accepted but never applied, as in the reference.
 
 The reset draws come from a torch.Generator seeded with the reset seed;
 step k's auto-reset draws from one seeded from the state's (seed, k) under
@@ -41,6 +44,7 @@ from ..devices.resistance import pulse_energy as _pulse_energy
 from ..devices.resistance import resistance as _resistance
 from ..ops.philox import RESET_STREAM, step_generator
 from ..parallel.mesh import resolve_device
+from ..physics.integrator import flush_subnormal
 from ..rewards import CompositeReward, RewardContext, RunningStat
 
 Tensor = torch.Tensor
@@ -355,10 +359,11 @@ class SpinTorqueArrayEnv:
         return torch.where((current.abs() > 1e-12)[:, None], out, m)
 
     def _sequential_sweep(self, pattern, mask, current, duration):
-        """Device d sees devices < d already updated; one clone of the
-        pattern per step takes every device's result."""
+        """Device d sees devices < d already updated; one copy of the
+        pattern per step, flushed of subnormals, takes every device's
+        result."""
         cfg = self.config
-        pattern = pattern.clone()
+        pattern = flush_subnormal(pattern)
         energy = torch.zeros_like(current)
         for d in range(cfg.n_devices):
             m_d = pattern[:, d, :]
@@ -383,6 +388,7 @@ class SpinTorqueArrayEnv:
         j = current[:, None, None]
         dt = (duration / 10.0)[:, None, None]
         act = (mask & (current.abs()[:, None] > 1e-12))[:, :, None]
+        pattern = flush_subnormal(pattern)
         m = pattern
         for _ in range(10):
             cos_t = torch.einsum("bnc,c->bn", m, e)

@@ -21,6 +21,14 @@ at entry and restored at exit, so the Radau path's batched 9x9 Newton
 solve takes scalar or N-d inputs too (the JAX package's assumes a 1-D
 batch).
 
+Subnormals. XLA flushes float subnormals to zero; torch keeps them. The
+carried state is flushed (``integrator.flush_subnormal``) on entry and,
+for RK45 and the midpoint, after every accepted update, so a pole state
+with subnormal transverse parts stays at its pole and a state decaying
+through the subnormal range reaches it exactly, as in the JAX package
+(``tests/test_torch_subnormal_parity.py``). Radau reaches JAX's results
+on those cases with the entry flush alone.
+
 Jacobians are exact: the chain rule of the renormalized RHS written out
 as batched 3x3 matrices (``_rhs_and_jacobian``), where the JAX package
 takes ``jax.linearize`` (the tests hold it to forward-mode autodiff); a
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from ..constants import GAMMA, MU0
+from .integrator import flush_subnormal
 from .llgs import LLGSParams, _rdiv, dmdt, energy_density, normalize_with_fallback
 
 Tensor = torch.Tensor
@@ -314,7 +323,9 @@ def integrate_adaptive(
         x = torch.as_tensor(x, dtype=dtype, device=device)
         return torch.broadcast_to(x, shape).reshape(-1)
 
-    y0 = tuple(flat(c) for c in m0)
+    # XLA flushes float subnormals to zero, so the JAX package's solve
+    # holds a pole state with subnormal transverse components at the pole.
+    y0 = flush_subnormal(torch.stack([flat(c) for c in m0])).unbind(0)
     span, current = flat(span), flat(current)
     params = _flatten_params(params.to(device=device, dtype=dtype), shape)
     c = _rhs_invariants(current, params)
@@ -389,7 +400,7 @@ def _rk45_body(c: _RHS, span, settings):
         accept, new_dt = _controller(ratio, dt, dt_min, dt_max, 0.2, 5.0)
 
         do = active & accept
-        nx, ny, nz = normalize_with_fallback(*m5)
+        nx, ny, nz = flush_subnormal(torch.stack(normalize_with_fallback(*m5))).unbind(0)
         mx = torch.where(do, nx, mx)
         my = torch.where(do, ny, my)
         mz = torch.where(do, nz, mz)
@@ -460,7 +471,7 @@ def _implicit_midpoint_body(c: _RHS, span, settings):
         accept, new_dt = _controller(ratio, dt, dt_min, dt_max, 1.0 / 3.0, 5.0)
 
         do = active & accept
-        nx, ny, nz = normalize_with_fallback(*y2)
+        nx, ny, nz = flush_subnormal(torch.stack(normalize_with_fallback(*y2))).unbind(0)
         mx = torch.where(do, nx, mx)
         my = torch.where(do, ny, my)
         mz = torch.where(do, nz, mz)

@@ -213,8 +213,11 @@ def flush_subnormal(x: Tensor) -> Tensor:
     This flush is narrower than XLA's: it touches only the carried state
     (XLA's also flushes every intermediate, the stage states and the
     right-hand side's products), and it gives +0 where XLA keeps the sign
-    (-0). Parity with JAX is shown for pole states
-    (``tests/test_torch_research_tier.py``), not in general."""
+    (-0). The adaptive integrators (``physics/adaptive.py``) and the array
+    env's sweeps (``envs/array.py``) flush their carried states with it too.
+    Parity with JAX is shown for pole states and states decaying through
+    the subnormal range (``tests/test_torch_research_tier.py``,
+    ``tests/test_torch_subnormal_parity.py``), not in general."""
     return torch.where(x.abs() < torch.finfo(x.dtype).tiny, 0.0, x)
 
 

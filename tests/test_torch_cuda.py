@@ -1,6 +1,7 @@
 """The CUDA pulse kernels (K1 in float32, K6 with bf16 stage arithmetic,
-K5 on a shard) against their plain versions, the PPO trainer, and the
-quantum tier's integer products, devices and matmul precision, on the card.
+K5 on a shard) against their plain versions, the PPO trainer, the
+quantum tier's integer products, devices and matmul precision, and the
+adaptive loop's subnormal pole states, on the card.
 
 Every test here carries the ``cuda`` marker and skips where torch sees no
 CUDA device. This file imports no JAX, so it also runs where the JAX
@@ -402,6 +403,30 @@ def test_adaptive_on_the_card_matches_the_cpu(cuda):
                                  device="cpu").solve(m.double(), (0.0, 2e-11), DEVICE_PARAMS)
         assert card["success"] and cpu["success"]
         torch.testing.assert_close(card["m"].cpu().double(), cpu["m"], rtol=0, atol=1e-4)
+
+
+def test_adaptive_rk45_holds_subnormal_pole_states_on_the_card(cuda):
+    """The -z pole with float32 subnormal transverse parts under a current
+    that destabilizes it: the adaptive loop flushes the state's subnormals
+    on entry and after each accepted update, so RK45 ends at the pole on
+    the card with the CPU port's step counts (and XLA's: 28 steps)."""
+    from spintorque_tpu_torch.physics import integrate_adaptive
+    from spintorque_tpu_torch.physics.solver import params_from_dict
+
+    dp = dict(volume=1e-24, saturation_magnetization=800e3, damping=0.01,
+              uniaxial_anisotropy=8e5, polarization=0.7)
+    tiny = torch.tensor([1e-38, -5e-39, 1e-45, 3e-40])
+    m0 = (tiny, -tiny.roll(1), torch.full((4,), -1.0))
+    span, cur = torch.full((4,), 2.5e-10), torch.full((4,), -2.7e-7)
+    card = integrate_adaptive(tuple(x.to(cuda) for x in m0), span.to(cuda), cur.to(cuda),
+                              params_from_dict(dp, device=cuda), max_steps=4000)
+    cpu = integrate_adaptive(m0, span, cur, params_from_dict(dp, device="cpu"), max_steps=4000)
+    for res in (card, cpu):
+        assert res.success.all()
+        assert [x.abs().cpu().tolist() for x in res.m] == [[0.0] * 4, [0.0] * 4, [1.0] * 4]
+    assert torch.equal(card.n_steps.cpu(), cpu.n_steps)
+    assert torch.equal(card.n_rejected.cpu(), cpu.n_rejected)
+    assert cpu.n_steps.tolist() == [28] * 4
 
 
 def test_env_states_are_pure_and_resume_on_the_card(cuda, tmp_path):
