@@ -48,15 +48,20 @@ against its plain version on the CPU, the standard benchmark suite,
 optimal-control baseline (the plain loop under autograd: no kernel, its
 loss and gradient against the CPU) and the comparative analysis's default
 controllers one by one (the optimal-control one's energy must be finite).
-Last, the quantum tier (``quantum_phase``): the quantum benchmark suite at
+Then the quantum tier (``quantum_phase``): the quantum benchmark suite at
 its defaults, QAOA at 14 qubits against the CPU, a 20-qubit, depth-20
 circuit at batch 64 (norms, and two states against the CPU by fidelity),
 the hybrid paths onto K1 (the scheduler's B=4096 classical task bit for
 bit with the plain loop, the hybrid simulator at 12 devices, the
 surrogate optimizer over the switching objective at n_train 2048, the
 QAOA device-design optimizer with its cross-entropy stage) and the quantum
-validation checks. Each path's launch counts are set to 0 just before it
-and read just after. Any failed check raises and exits non-zero.
+validation checks. Then the six examples of ``examples/torch/``
+(``examples_phase``: each ``main`` at its defaults with its wall time and
+pulse launches; the Gymnasium quickstart only where gymnasium is
+installed, else the phase says it skipped it) and, last, the soak
+(``soak_phase``: ``utils.soak`` for 60 s at B=4096, which must be
+healthy). Each path's launch counts are set to 0 just before it and read
+just after. Any failed check raises and exits non-zero.
 
 Beside the kernels' checks it holds the pulse kernel's design: ptxas's
 report shows no spill in any pulse_kernel instance; div6, the kernel's
@@ -2002,6 +2007,126 @@ def quantum_phase(dev, smi):
     return out
 
 
+EXAMPLES = ("quickstart_functional", "quickstart_gymnasium", "train_ppo", "switching_diagram",
+            "optimize_pulse", "stiff_analysis")
+
+
+def examples_phase(dev, smi):
+    """Each example of ``examples/torch/`` through its ``main`` at its
+    defaults on the card, with its wall time and the pulse launches counted
+    from 0 around it: quickstart_functional (B=4096, 11 steps: 11 K1
+    launches), train_ppo (40 updates of 8 steps at B=1024: 320),
+    switching_diagram (16 x 16 x 64 trajectories on the single-process mesh
+    of ``make_mesh()``: one launch, the sharded instance K5 at env offset
+    0), optimize_pulse (population 512, 10 iterations: 10) and
+    stiff_analysis (the plain adaptive loops: none). quickstart_gymnasium
+    needs gymnasium; where it is missing the phase says so and does not
+    count it as run (tests/test_torch_examples.py runs it on the CPU)."""
+    import importlib.util
+    import math
+
+    import torch
+
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+
+    counters = dict(K1=ci.PULSE_LAUNCHES, K5=ci.PULSE_SHARDED_LAUNCHES, K6=ci.PULSE_BF16_LAUNCHES)
+    want = dict(quickstart_functional=dict(K1=11, K5=0), train_ppo=dict(K1=320, K5=0),
+                switching_diagram=dict(K1=0, K5=1), optimize_pulse=dict(K1=10, K5=0),
+                stiff_analysis=dict(K1=0, K5=0))
+    out = {}
+    t_phase = time.perf_counter()
+    for name in EXAMPLES:
+        if name == "quickstart_gymnasium" and importlib.util.find_spec("gymnasium") is None:
+            out[name] = {"skipped": "gymnasium is not installed on this machine"}
+            print(f"examples: {name} skipped, not run: gymnasium is not installed on this "
+                  "machine (tests/test_torch_examples.py runs it on the CPU)")
+            continue
+        spec = importlib.util.spec_from_file_location(
+            f"torch_example_{name}", os.path.join(ROOT, "examples", "torch", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        result = module.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.count for k, c in counters.items()}
+        check(launches["K6"] == 0, f"example {name} launched K6")
+        if name in want:
+            check({k: launches[k] for k in ("K1", "K5")} == want[name],
+                  f"example {name} launched {launches}, want {want[name]}")
+        if name == "quickstart_functional":
+            check(math.isfinite(result["mean_reward"]) and 0 <= result["success_rate"] <= 1,
+                  f"quickstart_functional: {result}")
+        elif name == "quickstart_gymnasium":
+            check(math.isfinite(result["return"]), f"quickstart_gymnasium: {result}")
+        elif name == "train_ppo":
+            check(len(result["curve"]) == 21
+                  and all(math.isfinite(c["mean_reward"]) for c in result["curve"]),
+                  f"train_ppo: curve of {len(result['curve'])} entries")
+        elif name == "switching_diagram":
+            for p_row, f_row in zip(result["p_switch"], result["failed_fraction"]):
+                for p, f in zip(p_row, f_row):
+                    check(f == 1.0 if math.isnan(p) else 0.0 <= p <= 1.0,
+                          f"switching_diagram: p {p} with failed fraction {f}")
+        elif name == "optimize_pulse":
+            check(math.isfinite(result["best_value"]), f"optimize_pulse: {result}")
+        elif name == "stiff_analysis":
+            check(result["rk45"]["success"] and result["radau"]["success"]
+                  and result["max_diff"] < 1e-4, f"stiff_analysis: {result}")
+        out[name] = dict(wall_s=wall, launches=launches,
+                         result={k: v for k, v in result.items()
+                                 if k not in ("p_switch", "failed_fraction", "curve")})
+        print(f"examples: {name} {wall:.2f} s, pulse launches K1 {launches['K1']} / K5 "
+              f"{launches['K5']}  [{smi}]")
+    q, ppo = out["quickstart_functional"]["result"], out["train_ppo"]["result"]
+    sd = out["switching_diagram"]["result"]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"examples: quickstart_functional {q['env_steps_per_s']:.0f} env-steps/s at "
+          f"B={q['batch']}; train_ppo {ppo['summary']['steps_per_s']:.0f} train env-steps/s at "
+          f"B={ppo['batch']}, final success {ppo['summary']['success_rate']:.3f}; "
+          f"switching_diagram {sd['trajectories_per_s']:.0f} "
+          f"trajectories/s; examples phase {out['seconds']:.1f} s  [{smi}]")
+    return out
+
+
+def soak_phase(dev, smi, seconds=60.0):
+    """The soak program (``python -m spintorque_tpu_torch.utils.soak``)
+    through its ``main`` for ``seconds`` at B=4096 with the default env
+    configuration: it must exit 0 (no bad block, mean failed-solve
+    fraction under 5%), and every step of its blocks, the 6 warm-up blocks
+    included, launches K1 once."""
+    import torch
+
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+    from spintorque_tpu_torch.utils import soak
+
+    path = os.path.join(ROOT, "build", "soak.json")
+    torch.cuda.synchronize()
+    for c in (ci.PULSE_LAUNCHES, ci.PULSE_SHARDED_LAUNCHES, ci.PULSE_BF16_LAUNCHES):
+        c.reset()
+    t0 = time.perf_counter()
+    rc = soak.main(["--seconds", str(seconds), "--out", path])
+    wall = time.perf_counter() - t0
+    with open(path) as fh:
+        rec = json.load(fh)
+    k1 = ci.PULSE_LAUNCHES.count
+    check(rc == 0 and rec["healthy"], f"soak unhealthy (exit {rc}): {rec}")
+    check(k1 == (6 + rec["blocks"]) * soak.N_INNER, f"soak launched K1 {k1} times in "
+          f"{rec['blocks']} blocks")
+    check(ci.PULSE_SHARDED_LAUNCHES.count == 0 and ci.PULSE_BF16_LAUNCHES.count == 0,
+          "soak launched K5 or K6")
+    rec.update(k1_launches=k1, command_s=wall)
+    print(f"soak: {rec['wall_s']:.1f} s at B={rec['batch']}: {rec['env_steps_per_s']:.0f} "
+          f"env-steps/s, failed-solve fraction mean {rec['failed_solve_fraction_mean']:.6f} "
+          f"(max {rec['failed_solve_fraction_max']:.6f}), {rec['episodes_terminated']} "
+          f"terminated / {rec['episodes_truncated']} truncated episodes, {rec['bad_blocks']} "
+          f"bad blocks, K1 {k1}; healthy  [{smi}]")
+    return rec
+
+
 def main():
     import torch
 
@@ -2835,15 +2960,25 @@ def main():
     RECORD["quantum"] = quantum_phase(dev, smi)
     quantum_launches = RECORD["quantum"]["launches"]
 
+    # ------------------------------------------- 20. the examples, the soak
+    RECORD["examples"] = examples_phase(dev, smi)
+    example_launches = {k: sum(v["launches"][k] for v in RECORD["examples"].values()
+                               if isinstance(v, dict) and "launches" in v)
+                        for k in ("K1", "K5")}
+    RECORD["soak"] = soak_phase(dev, smi)
+
     pulse = "spintorque_tpu_torch/csrc/pulse_integrator.cu"
     kernels = [
         dict(name="llgs_pulse", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:283",
              launches=(launches["llgs_pulse"] + solver_launches + sum(shell_launches.values())
-                       + sum(research_launches.values()) + sum(quantum_launches.values())),
+                       + sum(research_launches.values()) + sum(quantum_launches.values())
+                       + example_launches["K1"] + RECORD["soak"]["k1_launches"]),
              launches_by_path=dict(env=launches["llgs_pulse"], solver=solver_launches,
                                    **{f"shell_{k}": v for k, v in shell_launches.items()},
-                                   **research_launches, **quantum_launches),
+                                   **research_launches, **quantum_launches,
+                                   examples=example_launches["K1"],
+                                   soak=RECORD["soak"]["k1_launches"]),
              max_abs_err=max(det_err, thermal_err, t_main["max_abs_err"],
                              *(r["max_abs_err"] for r in RECORD["analysis"]["solver"]["solves"]),
                              RECORD["research"]["objective"]["max_abs_err"],
@@ -2868,9 +3003,10 @@ def main():
              device_ms=probe_device_ms, library_device_ms=add_device_ms),
         dict(name="llgs_pulse_sharded", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:720",
-             launches=dp_launches + RECORD["model_axis"]["launches"],
+             launches=dp_launches + RECORD["model_axis"]["launches"] + example_launches["K5"],
              launches_by_path=dict(data_parallel=dp_launches,
-                                   model_axis=RECORD["model_axis"]["launches"]),
+                                   model_axis=RECORD["model_axis"]["launches"],
+                                   examples=example_launches["K5"]),
              max_abs_err=k5_err,
              ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound[0], bound_by=k5_bound[1],
              library_ms=None, chain_floor_ms=floors["K5"]),

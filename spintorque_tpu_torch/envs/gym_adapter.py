@@ -342,11 +342,14 @@ class GymSpinTorqueEnv(gym.Env):
         }
 
     def get_performance_stats(self) -> Dict[str, Any]:
+        """``devices`` follows the env's device: the CUDA count on a card,
+        1 on the CPU (as ``deployment.server`` reports it)."""
+        dev = self._env.device
         return {
             "solver": self.get_solver_info(),
             "health": self.get_health_report(),
-            "backend": self._env.device.type,
-            "devices": torch.cuda.device_count(),
+            "backend": dev.type,
+            "devices": torch.cuda.device_count() if dev.type == "cuda" else 1,
         }
 
     def render(self):  # pragma: no cover - optional visualization

@@ -176,9 +176,6 @@ class SpinTorqueEnv:
         self.local_batch_size = batch_size if mesh is None else local_batch_size(batch_size, mesh)
         dtype = config.torch_dtype
 
-        self.device_params: DeviceParams = make_device_params(
-            config.device_type, device_params, dtype=dtype, device=self.device
-        )
         if target_states is None:
             targets = np.array([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]])
         else:
@@ -192,23 +189,38 @@ class SpinTorqueEnv:
 
         self._integrator = config.integrator()
         check_config(self._integrator)
-        llgs = self.device_params.llgs()
-        if self.device.type == "cuda":
-            if not cuda_supported(llgs, self._integrator, dtype):
-                raise ValueError(
-                    f"the CUDA pulse kernel does not cover method={config.method!r}, "
-                    f"dtype={config.dtype!r} with this easy axis"
-                )
-            if not cuda_kernel_available():
-                raise RuntimeError("no CUDA device for the CUDA pulse kernel")
-        # Resolved once here: deciding per step would read the axis back.
-        self._llgs = dataclasses.replace(llgs, plus_z=is_plus_z(llgs.easy_axis))
+        self.device_params = make_device_params(
+            config.device_type, device_params, dtype=dtype, device=self.device
+        )
+        if self.device.type == "cuda" and not cuda_kernel_available():
+            raise RuntimeError("no CUDA device for the CUDA pulse kernel")
 
         if reward_components is None:
             reward_components = default_reward_config(
                 config.energy_penalty_weight, config.observation_mode
             )
         self.reward = CompositeReward(reward_components)
+
+    @property
+    def device_params(self) -> DeviceParams:
+        return self._device_params
+
+    @device_params.setter
+    def device_params(self, params: DeviceParams) -> None:
+        """Every later step integrates with ``params``: per-env fields (domain
+        randomization) may replace the constructed ones, as in the JAX env.
+        On "cuda" the kernel must cover them."""
+        llgs = params.llgs()
+        cfg = self.config
+        if self.device.type == "cuda" and not cuda_supported(llgs, self._integrator,
+                                                             cfg.torch_dtype):
+            raise ValueError(
+                f"the CUDA pulse kernel does not cover method={cfg.method!r}, "
+                f"dtype={cfg.dtype!r} with this easy axis"
+            )
+        self._device_params = params
+        # Resolved once here: deciding per step would read the axis back.
+        self._llgs = dataclasses.replace(llgs, plus_z=is_plus_z(llgs.easy_axis))
 
     # ------------------------------------------------------------------ API
 

@@ -42,3 +42,14 @@ def test_measure_env_throughput_final_obs_and_custom_actions():
 def test_sync_debug_mode_needs_a_cuda_env():
     with pytest.raises(ValueError):
         measure_env_throughput(_env(), n_inner=1, warmup=0, sync_debug_mode="error")
+
+
+def test_headline_scan_length_matches_production_rollout():
+    """The measured program's 16-step block is the production PPO rollout
+    length (tests/unit/test_bench_harness.py): the two cannot drift apart."""
+    import inspect
+
+    from spintorque_tpu_torch.rl import PPOConfig
+
+    default_n_inner = inspect.signature(measure_env_throughput).parameters["n_inner"].default
+    assert default_n_inner == PPOConfig().rollout_steps == 16

@@ -513,3 +513,63 @@ def test_serving_endpoint_checks_run_k1_from_the_refresh_thread(cuda):
         ep.stop()
     assert ci.PULSE_LAUNCHES.count >= 2  # the physics check and the env step
     assert ep.state.readiness["checks"]["subsystem_health"]["passed"]
+
+
+def _steps_per_s(env, action, n):
+    """Steps of ``env`` (B=1) per second with one host read a step, as a
+    Gymnasium adapter reads its step, resetting on termination or
+    truncation; one warm step first."""
+    import time
+
+    from spintorque_tpu_torch.utils.host import to_host
+
+    state, _ = env.reset(0)
+    action = torch.as_tensor(action, dtype=torch.float32, device=env.device)[None]
+    state, ts = env.step(state, action)
+    to_host(ts)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, ts = env.step(state, action)
+        host = to_host(ts)
+        if host.terminated[0] or host.truncated[0]:
+            state, _ = env.reset(0)
+    return n / (time.perf_counter() - t0)
+
+
+def test_single_env_faster_than_reference_gate(cuda):
+    """tests/integration/test_perf_gates.py's single-env gate (>10 steps/s)
+    on the functional env with the configuration GymSpinTorqueEnv(
+    include_thermal_fluctuations=False, max_duration=1e-9, dtype="float32")
+    builds (the card's machine has no gymnasium)."""
+    from spintorque_tpu_torch.envs import SpinTorqueEnvConfig
+
+    cfg = SpinTorqueEnvConfig(include_thermal=False, max_duration=1e-9, autoreset=False)
+    env = SpinTorqueEnv(batch_size=1, config=cfg, device=cuda)
+    rate = _steps_per_s(env, [1e5, 1e-9], 50)
+    assert rate > 10, f"single-env rate {rate:.1f} steps/s under reference gate"
+
+
+def test_array_env_faster_than_reference_gate(cuda):
+    """The 4x4 array gate (>1 step/s) on the configuration
+    GymSpinTorqueArrayEnv(array_size=(4, 4), action_mode="global",
+    dtype="float32") builds."""
+    from spintorque_tpu_torch.envs import ArrayEnvConfig, SpinTorqueArrayEnv
+
+    cfg = ArrayEnvConfig(rows=4, cols=4, action_mode="global", autoreset=False)
+    env = SpinTorqueArrayEnv(batch_size=1, config=cfg, device=cuda)
+    rate = _steps_per_s(env, [0.0, 1e5], 20)
+    assert rate > 1, f"array-env rate {rate:.1f} steps/s under reference gate"
+
+
+def test_soak_is_healthy_on_the_card(cuda):
+    """utils.soak at B=4096 with the default env configuration for a few
+    seconds: no bad block, a mean failed-solve fraction under 5%, one K1
+    launch a step."""
+    from spintorque_tpu_torch.utils.soak import N_INNER, soak
+
+    env = SpinTorqueEnv(batch_size=4096, device=cuda)
+    ci.PULSE_LAUNCHES.reset()
+    rec = soak(env, seconds=5.0, warmup_blocks=1)
+    assert rec["healthy"] and rec["bad_blocks"] == 0 and rec["blocks"] >= 1, rec
+    assert ci.PULSE_LAUNCHES.count == (1 + rec["blocks"]) * N_INNER
+    assert rec["card"] and rec["backend"] == "cuda"

@@ -291,6 +291,7 @@ def test_reports_and_render():
     assert report["checks"]["compute"]["detail"] == "sum=5.0"
     stats = env.get_performance_stats()
     assert stats["backend"] == "cpu" and stats["solver"]["rk4_noise"] == "per_substep"
+    assert stats["devices"] == 1  # a CPU env counts one device, card or none
     assert env.get_device_info()["device_type"] == "stt_mram"
     frame = env.render()
     assert frame.ndim == 3 and frame.shape[-1] == 3 and frame.dtype == np.uint8

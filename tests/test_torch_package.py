@@ -1,7 +1,8 @@
 """The port stands alone and exports the JAX package's names.
 
-No module of ``spintorque_tpu_torch`` and not ``chip_smoke.py`` imports JAX
-or the JAX package (the card's machine has neither); the port's
+No module of ``spintorque_tpu_torch``, no example of ``examples/torch/``
+and not ``chip_smoke.py`` imports JAX or the JAX package (the card's
+machine has neither); the port's
 ``physics``, ``deployment``, ``visualization`` and ``utils`` and top-level
 namespaces carry every name the JAX package exports from the modules
 ported so far, and every module of the shell has its JAX counterpart's
@@ -33,7 +34,10 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_no_jax_import():
-    files = sorted((ROOT / "spintorque_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert len(examples) == 6
+    files = (sorted((ROOT / "spintorque_tpu_torch").rglob("*.py")) + examples
+             + [ROOT / "chip_smoke.py"])
     assert len(files) > 40
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & set(FORBIDDEN))
            for p in files}
