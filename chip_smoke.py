@@ -58,10 +58,14 @@ QAOA device-design optimizer with its cross-entropy stage) and the quantum
 validation checks. Then the six examples of ``examples/torch/``
 (``examples_phase``: each ``main`` at its defaults with its wall time and
 pulse launches; the Gymnasium quickstart only where gymnasium is
-installed, else the phase says it skipped it) and, last, the soak
-(``soak_phase``: ``utils.soak`` for 60 s at B=4096, which must be
-healthy). Each path's launch counts are set to 0 just before it and read
-just after. Any failed check raises and exits non-zero.
+installed, else the phase says it skipped it), the soak (``soak_phase``:
+``utils.soak`` for 60 s at B=4096, which must be healthy) and, last, the
+programs beside the package (``scripts_phase``: bench, bench_integrator,
+bench_roofline, bench_sort_overhead, bench_bf16, bench_ppo,
+bench_stiff_solvers and verify_thermal of ``scripts/torch/`` through their
+``main`` on the card, each of which must pass its own checks). Each
+path's launch counts are set to 0 just before it and read just after.
+Any failed check raises and exits non-zero.
 
 Beside the kernels' checks it holds the pulse kernel's design: ptxas's
 report shows no spill in any pulse_kernel instance; div6, the kernel's
@@ -178,13 +182,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 RECORD = {}
-PEAK_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores (an FMA is two flops)
-# Float32 instructions (FADD, FMUL, FFMA alike) issue one per lane per
-# clock: 132 SMs x 128 lanes x 1.98 GHz, half the FMA flop rate. The
-# kernels are built with --fmad=false, so an add or a multiply is one
-# instruction: the rate every bound below prices operations at.
-PEAK_FP32_INSTR = PEAK_FLOPS / 2
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
 
 def check(cond, msg):
@@ -203,7 +200,9 @@ def nvidia_smi_line():
 def bound(ops, nbytes):
     """(bound_ms, bound_by): the least time for ``ops`` float32 instructions
     at ``PEAK_FP32_INSTR`` per second and ``nbytes`` bytes at the card's
-    HBM rate."""
+    HBM rate (``utils.benchmark``'s peaks)."""
+    from spintorque_tpu_torch.utils.benchmark import PEAK_BYTES, PEAK_FP32_INSTR
+
     t_ops, t_bytes = ops / PEAK_FP32_INSTR, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -2127,6 +2126,134 @@ def soak_phase(dev, smi, seconds=60.0):
     return rec
 
 
+SCRIPTS = ("bench", "bench_integrator", "bench_roofline", "bench_sort_overhead", "bench_bf16",
+           "bench_ppo", "bench_stiff_solvers", "verify_thermal")
+# The programs' small-size options that keep the phase near two minutes:
+# one timed call of the plain loop a row (~3 s a call at 1000 substeps),
+# and the stiff ladder at one rtol against a Radau reference at 1e-8
+# (~900 adaptive steps at ~10-20 ms each on the card).
+SCRIPT_ARGS = {"bench_integrator": ["--plain-iters", "1"],
+               "bench_stiff_solvers": ["--rtols", "1e-6", "--ref-rtol", "1e-8"]}
+
+
+def scripts_phase(dev, smi):
+    """The programs beside the package (``scripts/torch/``, programs 2-9 of
+    the port's table) through their ``main`` on the card, with the options
+    of ``SCRIPT_ARGS``, each with its wall time and the K1, K2, K5, K6 and
+    K7 launches counted from 0 around it, which must equal what the
+    program's settings launch: bench 3 fresh envs x (12 + 3 x 8) programs
+    x 16 steps of K1 and the probe K2 once (as in a fresh process);
+    bench_integrator 2 x (1 + 30) + 2 x (1 + 10) K1; bench_roofline 2 x
+    ((1 + 12 + 20) x 2 + 1 + 12 + 10) K1 and its profiled calls (5 a
+    point, or 10 or 15 where a profile missed a launch) and
+    ``measure_op_costs``' 112 K7; bench_sort_overhead 2 x (12 + 20) K1;
+    bench_bf16 2 x 3 x 32 + 1 each of K1 and K6; bench_ppo (3 x (10 + 2 x
+    8) + 10 + 8 + 1) x 16 K1; the stiff ladder none (plain adaptive loops);
+    verify_thermal one. The run fails on a program's own failure (``ok``
+    false, its exit code 1: a verify_thermal check failed,
+    bench_integrator's deterministic |plain - kernel| is over 2e-6,
+    bench_ppo's identity misses or its ablation moved the network, a stiff
+    solve failed)."""
+    import importlib.util
+
+    import torch
+
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+    from spintorque_tpu_torch.ops import op_chain as oc
+
+    counters = dict(K1=ci.PULSE_LAUNCHES, K2=ci.PROBE_LAUNCHES, K5=ci.PULSE_SHARDED_LAUNCHES,
+                    K6=ci.PULSE_BF16_LAUNCHES, K7=oc.OP_CHAIN_LAUNCHES)
+    want = dict(
+        bench=dict(K1=3 * (12 + 3 * 8) * 16, K2=1),
+        bench_integrator=dict(K1=2 * (1 + 30) + 2 * (1 + 10)),
+        bench_roofline=dict(K1=2 * ((1 + 12 + 20) * 2 + 1 + 12 + 10), K7=112),
+        bench_sort_overhead=dict(K1=2 * (12 + 20)),
+        bench_bf16=dict(K1=2 * 3 * 32 + 1, K6=2 * 3 * 32 + 1),
+        bench_ppo=dict(K1=(3 * (10 + 2 * 8) + 10 + 8 + 1) * 16),
+        bench_stiff_solvers=dict(),
+        verify_thermal=dict(K1=1),
+    )
+    out = {}
+    t_phase = time.perf_counter()
+    for name in SCRIPTS:
+        spec = importlib.util.spec_from_file_location(
+            f"torch_script_{name}", os.path.join(ROOT, "scripts", "torch", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        if name == "bench":
+            ci.forget_probe()  # bench probes the library as a fresh process does
+        t0 = time.perf_counter()
+        rec = module.main(SCRIPT_ARGS.get(name, []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.count for k, c in counters.items()}
+        expected = {k: want[name].get(k, 0) for k in counters}
+        if name == "bench_roofline":  # its profiled calls, a profile again where one missed
+            expected["K1"] += sum(r["kernel_profiled_calls"] for r in rec["results"].values())
+        check(launches == expected, f"{name} launched {launches}, want {expected}")
+        check(rec["ok"], f"{name} failed: {rec}")
+        check(rec.get("backend", rec.get("platform")) == "cuda", f"{name} did not run on the card")
+        out[name] = dict(wall_s=wall, launches=launches, args=SCRIPT_ARGS.get(name, []),
+                         record=rec)
+        print(f"scripts: {name} {wall:.2f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }  [{smi}]")
+    b, bi = out["bench"]["record"], out["bench_integrator"]["record"]
+    rf, so = out["bench_roofline"]["record"]["results"], out["bench_sort_overhead"]["record"]
+    bf, pp = out["bench_bf16"]["record"], out["bench_ppo"]["record"]
+    st, vt = out["bench_stiff_solvers"]["record"], out["verify_thermal"]["record"]
+    print(f"scripts: bench {b['value']:.1f} {b['unit']} (fresh envs "
+          f"{[round(r, 1) for r in b['per_compile_medians']]}), vs_baseline "
+          f"{b['vs_baseline']:.1f}  [{smi}]")
+    res = bi["results"]
+    print(f"scripts: bench_integrator B={bi['batch']} {bi['substeps']} substeps: plain det "
+          f"{res['plain_det_rk4']['ms_per_batch']:.1f} ms, kernel det "
+          f"{res['kernel_det_rk4']['ms_per_batch']:.4f} ms, plain thermal "
+          f"{res['plain_thermal_rk4']['ms_per_batch']:.1f} ms, kernel thermal "
+          f"{res['kernel_thermal_rk4']['ms_per_batch']:.4f} ms; max |plain - kernel| "
+          f"deterministic {bi['max_abs_diff_deterministic']:.3e}; kernel thermal "
+          + ", ".join(f"B={k} {v['ms_per_batch']:.4f} ms"
+                      for k, v in bi["kernel_thermal_large"].items()) + f"  [{smi}]")
+    for label, r in rf.items():
+        print(f"scripts: bench_roofline {label}: marginal "
+              f"{r['us_per_substep_batch_marginal']:.4f} us/substep-batch (chain floor "
+              f"{r['chain_floor_us_per_substep']:.4f}, {r['marginal_over_chain_floor']:.2f}x), "
+              f"fixed {r['fixed_call_overhead_ms']:.4f} ms/call; the kernel alone "
+              f"{r['kernel_ms_per_pulse_batch']} ms, marginal "
+              f"{r['kernel_us_per_substep_batch_marginal']} us/substep-batch "
+              f"({r['kernel_marginal_over_chain_floor']}x) + {r['kernel_fixed_ms']} ms; "
+              f"{100 * r['marginal_fp32_utilization']:.2f}% of the fp32 instruction rate at the "
+              f"margin, substeps {r['substeps_run']}  [{smi}]")
+    print(f"scripts: bench_sort_overhead (a) {so['sorted_random_ms']:.4f} ms, (c) "
+          f"{so['uniform_ms']:.4f} ms, (a)-(c) {so['sort_overhead_ms']:.4f} ms, argsort "
+          f"{so['argsort_ms']:.4f} ms  [{smi}]")
+    acc = bf["accuracy_det_bf16_vs_f32"]
+    print(f"scripts: bench_bf16 best ms " + ", ".join(
+        f"{k} {min(v['ms_per_pulse_batch_trials']):.4f}" for k, v in bf["results"].items())
+        + f"; thermal speedup {bf['thermal_speedup_bf16_over_f32']:.4f}; angle mean "
+        f"{acc['mean_angular_error_deg']:.5f} p99 {acc['p99_angular_error_deg']:.5f} max "
+        f"{acc['max_angular_error_deg']:.5f} deg  [{smi}]")
+    ph = pp["phases_in_situ_ms"]
+    print(f"scripts: bench_ppo train_step {pp['train_step_ms']:.3f} ms = env "
+          f"{ph['env_steps']:.3f} + policy {ph['policy_marginal']:.3f} + update "
+          f"{ph['update_marginal']:.3f} (identity rel err {pp['identity_rel_err']:.1e}); "
+          f"rollout-only {pp['rollout_ms']:.3f}, update-only "
+          f"{pp['update_only_isolated_ms']:.3f} ms  [{smi}]")
+    print("scripts: bench_stiff_solvers " + ", ".join(
+        f"{e['method']} rtol {e['rtol']:g} {e['accepted_steps']}+{e['rejected_steps']} steps "
+        f"err {e['true_error']:.3e} ({e['wall_s']:.2f} s)" for e in st["ladder"])
+        + f"; {st['case']['reference']}  [{smi}]")
+    print(f"scripts: verify_thermal ok {vt['ok']}, tilt std "
+          f"{vt['thermal_tilt_std']:.5f}, x/y {vt['std_ratio_x_over_y']:.4f}  [{smi}]")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = {k: sum(v["launches"][k] for v in out.values() if isinstance(v, dict)
+                              and "launches" in v) for k in counters}
+    print(f"scripts: phase {out['seconds']:.1f} s, launches {out['launches']}  [{smi}]")
+    return out
+
+
 def main():
     import torch
 
@@ -2967,18 +3094,24 @@ def main():
                         for k in ("K1", "K5")}
     RECORD["soak"] = soak_phase(dev, smi)
 
+    # ------------------------------------ 21. the programs beside the package
+    RECORD["scripts"] = scripts_phase(dev, smi)
+    script_launches = RECORD["scripts"]["launches"]
+
     pulse = "spintorque_tpu_torch/csrc/pulse_integrator.cu"
     kernels = [
         dict(name="llgs_pulse", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:283",
              launches=(launches["llgs_pulse"] + solver_launches + sum(shell_launches.values())
                        + sum(research_launches.values()) + sum(quantum_launches.values())
-                       + example_launches["K1"] + RECORD["soak"]["k1_launches"]),
+                       + example_launches["K1"] + RECORD["soak"]["k1_launches"]
+                       + script_launches["K1"]),
              launches_by_path=dict(env=launches["llgs_pulse"], solver=solver_launches,
                                    **{f"shell_{k}": v for k, v in shell_launches.items()},
                                    **research_launches, **quantum_launches,
                                    examples=example_launches["K1"],
-                                   soak=RECORD["soak"]["k1_launches"]),
+                                   soak=RECORD["soak"]["k1_launches"],
+                                   scripts=script_launches["K1"]),
              max_abs_err=max(det_err, thermal_err, t_main["max_abs_err"],
                              *(r["max_abs_err"] for r in RECORD["analysis"]["solver"]["solves"]),
                              RECORD["research"]["objective"]["max_abs_err"],
@@ -2989,7 +3122,8 @@ def main():
              deterministic_chain_floor_ms=floors["K1 deterministic"]),
         dict(name="llgs_pulse_bf16", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:316",
-             launches=launches["llgs_pulse_bf16"],
+             launches=launches["llgs_pulse_bf16"] + script_launches["K6"],
+             launches_by_path=dict(env=launches["llgs_pulse_bf16"], scripts=script_launches["K6"]),
              max_abs_err=max(bf16_err, bf16_thermal_err, t_main["bf16_max_abs_err"]),
              ms=t_main["bf16_ms"], plain_ms=t_main["bf16_plain_ms"], bound_ms=t_main["bound_ms"],
              bound_by=t_main["bound_by"], library_ms=None, chain_floor_ms=floors["K6"],
@@ -2997,22 +3131,28 @@ def main():
              deterministic_chain_floor_ms=floors["K6 deterministic"]),
         dict(name="probe_add_one", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:118",
-             launches=launches["probe_add_one"], max_abs_err=probe_err,
+             launches=launches["probe_add_one"] + script_launches["K2"],
+             launches_by_path=dict(env=launches["probe_add_one"], scripts=script_launches["K2"]),
+             max_abs_err=probe_err,
              ms=probe_ms, plain_ms=probe_plain_ms, bound_ms=probe_bound[0],
              bound_by=probe_bound[1], library_ms=probe_library_ms, chain_floor_ms=None,
              device_ms=probe_device_ms, library_device_ms=add_device_ms),
         dict(name="llgs_pulse_sharded", route="cuda", source=pulse,
              replaces="spintorque_tpu/ops/pallas_integrator.py:720",
-             launches=dp_launches + RECORD["model_axis"]["launches"] + example_launches["K5"],
+             launches=(dp_launches + RECORD["model_axis"]["launches"] + example_launches["K5"]
+                       + script_launches["K5"]),
              launches_by_path=dict(data_parallel=dp_launches,
                                    model_axis=RECORD["model_axis"]["launches"],
-                                   examples=example_launches["K5"]),
+                                   examples=example_launches["K5"],
+                                   scripts=script_launches["K5"]),
              max_abs_err=k5_err,
              ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound[0], bound_by=k5_bound[1],
              library_ms=None, chain_floor_ms=floors["K5"]),
         dict(name="op_chain", route="cuda", source="spintorque_tpu_torch/csrc/op_chain.cu",
              replaces="scripts/bench_vpu_op_costs.py:43",
-             launches=k7_launches, max_abs_err=k7_err,
+             launches=k7_launches + script_launches["K7"],
+             launches_by_path=dict(measure_op_costs=k7_launches, scripts=script_launches["K7"]),
+             max_abs_err=k7_err,
              ms=k7_ms, plain_ms=k7_plain_ms, bound_ms=k7_bound[0], bound_by=k7_bound[1],
              library_ms=None, chain_floor_ms=None),
     ]

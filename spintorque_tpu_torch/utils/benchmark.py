@@ -12,6 +12,9 @@ phases.
 On a mesh (an env built with ``mesh=``) every rank runs the same program on
 its rows; the ranks start each timed block together, and a rate is the
 global env-steps over the slowest rank's time (``all_reduce(MAX)``).
+
+``PEAK_FLOPS``, ``PEAK_FP32_INSTR`` and ``PEAK_BYTES`` are the card's
+peaks that bounds and utilizations are priced at.
 """
 
 from __future__ import annotations
@@ -23,6 +26,17 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import all_reduce
+
+# The card's peaks (NVIDIA's data sheet, H100 SXM at its 700 W limit), the
+# one copy that chip_smoke.py's bounds and scripts/torch/bench_roofline.py
+# read.
+PEAK_FLOPS = 67e12  # float32, outside the tensor cores (an FMA is two flops)
+# Float32 instructions (FADD, FMUL, FFMA alike) issue one per lane per
+# clock: 132 SMs x 128 lanes x 1.98 GHz, half the FMA flop rate. The
+# kernels are built with --fmad=false, so an add or a multiply is one
+# instruction: the rate every bound prices operations at.
+PEAK_FP32_INSTR = PEAK_FLOPS / 2
+PEAK_BYTES = 3.35e12  # HBM3, bytes/s
 
 
 def _run_info(mesh, device) -> dict:

@@ -1,7 +1,7 @@
 """The port stands alone and exports the JAX package's names.
 
-No module of ``spintorque_tpu_torch``, no example of ``examples/torch/``
-and not ``chip_smoke.py`` imports JAX or the JAX package (the card's
+No module of ``spintorque_tpu_torch``, no example of ``examples/torch/``,
+no program of ``scripts/torch/`` and not ``chip_smoke.py`` imports JAX or the JAX package (the card's
 machine has neither); the port's
 ``physics``, ``deployment``, ``visualization`` and ``utils`` and top-level
 namespaces carry every name the JAX package exports from the modules
@@ -36,7 +36,9 @@ def _imported_roots(path: pathlib.Path):
 def test_no_jax_import():
     examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
     assert len(examples) == 6
-    files = (sorted((ROOT / "spintorque_tpu_torch").rglob("*.py")) + examples
+    scripts = sorted((ROOT / "scripts" / "torch").glob("*.py"))
+    assert len(scripts) == 9
+    files = (sorted((ROOT / "spintorque_tpu_torch").rglob("*.py")) + examples + scripts
              + [ROOT / "chip_smoke.py"])
     assert len(files) > 40
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & set(FORBIDDEN))
