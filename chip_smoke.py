@@ -70,6 +70,9 @@ Any failed check raises and exits non-zero.
 Beside the kernels' checks it holds the pulse kernel's design: ptxas's
 report shows no spill in any pulse_kernel instance; div6, the kernel's
 replacement for RK4's IEEE x / 6.0f, equals it on all 2^32 float32 inputs;
+K6's native bf16 ops (add, sub, mul over all 2^32 ordered pairs; neg and
+the products by 0.5 and 2 over all 2^16 values) equal torch's bf16 ops, the
+float op rounded once, bit for bit (``ops.cuda_integrator.check_bf16_ops``);
 the thermal ring's ragged cases (a batch that is no multiple of 32, n = 0
 and n = 1 in the warp of the longest env, every n = 0, n one past a
 multiple of the ring's chunk, a nonzero env_offset) agree with the plain
@@ -107,7 +110,9 @@ Tolerances:
     CHECK_STEPS steps on its check_input, per-op inputs where every step
     moves x (on ones, the timing input, every chain sits at its fixed point
     and a copy would agree); there a copy, a step more or fewer, or another
-    op differs by more than 1e-3.
+    op differs by more than 1e-3. base2_bf16, the Newton step in K6's
+    native bf16 ops, is held to torch's bf16 chain the same way (its values
+    are bf16, so the two agree to the bit or not at all);
 
   * the device factory and its analytics, card vs CPU float32 on the same
     (4096, 3) inputs: rtol 1e-6, with an atol of 1e-6 times the largest
@@ -166,7 +171,10 @@ plain FADDs and FMULs, one instruction an operation: a pulse call's
 operations are its envs' substeps times the per-substep count of
 ``ops.cuda_integrator.pulse_ops_per_substep`` (each add, multiply, divide,
 sqrt, log, compare or select one, so a lower bound), the probe's one add an
-element, K7's a plain FADD and FMUL a step.
+element, K7's a plain FADD and FMUL a step. K6 runs most of its operations
+(``pulse_bf16_ops_per_substep``) as native bf16 instructions, which are
+priced at twice the float32 rate (the card's 133.8 TFLOP/s bf16 outside the
+tensor cores, pairs of values in one instruction).
 """
 
 import contextlib
@@ -197,14 +205,27 @@ def nvidia_smi_line():
     return out.splitlines()[0]
 
 
-def bound(ops, nbytes):
-    """(bound_ms, bound_by): the least time for ``ops`` float32 instructions
-    at ``PEAK_FP32_INSTR`` per second and ``nbytes`` bytes at the card's
-    HBM rate (``utils.benchmark``'s peaks)."""
-    from spintorque_tpu_torch.utils.benchmark import PEAK_BYTES, PEAK_FP32_INSTR
+def bound(ops, nbytes, bf16_ops=0):
+    """(bound_ms, bound_by): the least time for ``ops`` instructions, of
+    which ``bf16_ops`` bf16 at ``PEAK_BF16_INSTR`` per second and the rest
+    float32 at ``PEAK_FP32_INSTR``, and ``nbytes`` bytes at the card's HBM
+    rate (``utils.benchmark``'s peaks)."""
+    from spintorque_tpu_torch.utils.benchmark import PEAK_BF16_INSTR, PEAK_BYTES, PEAK_FP32_INSTR
 
-    t_ops, t_bytes = ops / PEAK_FP32_INSTR, nbytes / PEAK_BYTES
+    t_ops = (ops - bf16_ops) / PEAK_FP32_INSTR + bf16_ops / PEAK_BF16_INSTR
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def pulse_bound(n_substeps, cfg):
+    """``bound`` of a pulse call (K1, K5 or K6 as ``cfg`` says) over envs
+    with these substep counts, from ``ops.cuda_integrator``'s counts."""
+    import torch
+
+    from spintorque_tpu_torch.ops import cuda_integrator as ci
+
+    bf16_ops = int(n_substeps.to(torch.int64).sum()) * ci.pulse_bf16_ops_per_substep(cfg, True)
+    return bound(*ci.pulse_work(n_substeps, cfg, True), bf16_ops)
 
 
 def global_actions(batch, steps, seed):
@@ -2146,9 +2167,10 @@ def scripts_phase(dev, smi):
     bench_integrator 2 x (1 + 30) + 2 x (1 + 10) K1; bench_roofline 2 x
     ((1 + 12 + 20) x 2 + 1 + 12 + 10) K1 and its profiled calls (5 a
     point, or 10 or 15 where a profile missed a launch) and
-    ``measure_op_costs``' 112 K7; bench_sort_overhead 2 x (12 + 20) K1;
-    bench_bf16 2 x 3 x 32 + 1 each of K1 and K6; bench_ppo (3 x (10 + 2 x
-    8) + 10 + 8 + 1) x 16 K1; the stiff ladder none (plain adaptive loops);
+    ``measure_op_costs``' 2 x 9 x (1 + 2 x 3) = 126 K7;
+    bench_sort_overhead 2 x (12 + 20) K1; bench_bf16 2 x 3 x 32 + 1 each
+    of K1 and K6; bench_ppo (3 x (10 + 2 x 8) + 10 + 8 + 1) x 16 K1; the
+    stiff ladder none (plain adaptive loops);
     verify_thermal one. The run fails on a program's own failure (``ok``
     false, its exit code 1: a verify_thermal check failed,
     bench_integrator's deterministic |plain - kernel| is over 2e-6,
@@ -2166,7 +2188,8 @@ def scripts_phase(dev, smi):
     want = dict(
         bench=dict(K1=3 * (12 + 3 * 8) * 16, K2=1),
         bench_integrator=dict(K1=2 * (1 + 30) + 2 * (1 + 10)),
-        bench_roofline=dict(K1=2 * ((1 + 12 + 20) * 2 + 1 + 12 + 10), K7=112),
+        bench_roofline=dict(K1=2 * ((1 + 12 + 20) * 2 + 1 + 12 + 10),
+                            K7=2 * len(oc.OPS) * (1 + 2 * oc.REPS)),
         bench_sort_overhead=dict(K1=2 * (12 + 20)),
         bench_bf16=dict(K1=2 * 3 * 32 + 1, K6=2 * 3 * 32 + 1),
         bench_ppo=dict(K1=(3 * (10 + 2 * 8) + 10 + 8 + 1) * 16),
@@ -2308,6 +2331,22 @@ def main():
     print(f"div6 vs IEEE x / 6.0f over all 2^32 float32 inputs: {div6_bad} differ in value, "
           f"{div6_payload} NaNs differ in payload")
     check(div6_bad == 0 and div6_payload == 0, "div6 differs from x / 6.0f")
+    # K6 computes every op of ci.BF16_OPS natively: each must equal torch's
+    # bf16 op on every input. The control (a fused multiply-add against
+    # torch's two roundings) must differ: it shows the check can fail.
+    t0 = time.perf_counter()
+    bf16_ops = ci.check_bf16_ops()
+    print(f"K6's native bf16 ops vs torch's (float op, one rounding) over all 2^32 pairs (add, "
+          f"sub, mul, control fma) and 2^16 values (neg, x0.5, x2) in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{op} {bad} mismatches" + (f" (first {first})" if first else "")
+                      for op, (bad, first) in bf16_ops.items()))
+    check(all(bf16_ops[op][0] == 0 for op in ci.BF16_OPS),
+          f"a native bf16 op of K6 differs from torch's: {bf16_ops}")
+    check(bf16_ops[ci.BF16_CONTROL][0] > 0,
+          f"the bf16 check found its control equal to torch's form: {bf16_ops}")
+    RECORD["bf16_ops"] = {op: dict(mismatches=bad, first=first)
+                          for op, (bad, first) in bf16_ops.items()}
     check(ci.cuda_kernel_available(), "probe failed")
     x = torch.arange(8 * 128, dtype=torch.float32, device=dev)
     probe_err = (ci.probe_add_one(x) - ci.probe_add_one_plain(x)).abs().max().item()
@@ -2590,13 +2629,16 @@ def main():
                 row["n_substeps"] = got.n_substeps
                 want, row["bf16_plain_ms"] = timed(lambda: integrate_pulse_plain(
                     m0, spans, cur, p_main, cfg._replace(bf16_rhs=True), seed=5))
-                row["bf16_max_abs_err"] = compare(calls[("K6", label)](), want, 1e-5)
-                row["bound_ms"], row["bound_by"] = bound(*ci.pulse_work(got.n_substeps, cfg, True))
+                got16 = calls[("K6", label)]()
+                row["bf16_max_abs_err"] = compare(got16, want, 1e-5)
+                row["bound_ms"], row["bound_by"] = pulse_bound(got.n_substeps, cfg)
+                row["bf16_bound_ms"], row["bf16_bound_by"] = pulse_bound(
+                    got16.n_substeps, cfg._replace(bf16_rhs=True))
                 line += (f", plain {row['plain_ms']:.1f} ms, max_abs_err "
                          f"{row['max_abs_err']:.3e}; K6 {k6_ms:.3f} ms, plain bf16 "
                          f"{row['bf16_plain_ms']:.1f} ms, max_abs_err "
                          f"{row['bf16_max_abs_err']:.3e}; bound {row['bound_ms']:.4f} ms "
-                         f"({row['bound_by']})")
+                         f"({row['bound_by']}), K6 {row['bf16_bound_ms']:.4f} ms")
             else:
                 line += f"; K6 {k6_ms:.3f} ms"
             timing[f"{label}_B{B}"] = row
@@ -2887,7 +2929,7 @@ def main():
     k5_main_err = compare(got, want, 1e-5)
     k5_err = max(k5_err, k5_main_err)
     RECORD["k5_max_abs_err"] = k5_err
-    k5_bound = bound(*ci.pulse_work(got.n_substeps, main_cfg, True))
+    k5_bound = pulse_bound(got.n_substeps, main_cfg)
     print(f"K1 thermal main config: B=1024 {k1_by_batch[1024]:.3f} ms, B=2048 "
           f"{k1_by_batch[2048]:.3f} ms, B=4096 {k1_by_batch[4096]:.3f} ms; K5 on rank 1's "
           f"shard of 2 (B=2048, env_offset 2048) {k5_ms:.3f} ms, plain {k5_plain_ms:.1f} ms, "
@@ -3022,6 +3064,8 @@ def main():
     xk = torch.ones(sms * 2048, dtype=torch.float32, device=dev)
     k7_ms = cuda_ms(lambda: oc.op_chain(xk, "base2", 20_000, 256), 5)
     k7_plain_ms = cuda_ms(lambda: oc.op_chain_plain(xk, "base2", 20_000), 1)
+    k7_bf16_ms = cuda_ms(lambda: oc.op_chain(xk, "base2_bf16", 20_000, 256), 5)
+    k7_bf16_plain_ms = cuda_ms(lambda: oc.op_chain_plain(xk, "base2_bf16", 20_000), 1)
     # base2 is a plain FADD and a plain FMUL a step (--fmad=false).
     k7_bound = bound(xk.numel() * 20_000 * 2, 2 * 4 * xk.numel())
     for shape, key in (("latency, 1 block of 1024", "latency_ns"),
@@ -3029,8 +3073,9 @@ def main():
         print(f"K7 ns/op ({shape}): "
               + ", ".join(f"{k} {v:.3f}" for k, v in costs[key].items()) + f"  [{smi}]")
     print(f"K7 base2 x 20000 steps on {xk.numel()} threads: {k7_ms:.3f} ms, plain "
-          f"{k7_plain_ms:.1f} ms, bound {k7_bound[0]:.4f} ms; {k7_launches} launches, "
-          f"max_abs_err {k7_err:.1e} (check inputs, {oc.CHECK_STEPS} steps)  [{smi}]")
+          f"{k7_plain_ms:.1f} ms, bound {k7_bound[0]:.4f} ms; base2_bf16 {k7_bf16_ms:.3f} ms, "
+          f"plain {k7_bf16_plain_ms:.1f} ms; {k7_launches} launches, max_abs_err {k7_err:.1e} "
+          f"(check inputs, {oc.CHECK_STEPS} steps)  [{smi}]")
     RECORD["op_costs"] = costs
 
     # Chain floors: the longest env's substeps times the dependent depth of
@@ -3125,8 +3170,9 @@ def main():
              launches=launches["llgs_pulse_bf16"] + script_launches["K6"],
              launches_by_path=dict(env=launches["llgs_pulse_bf16"], scripts=script_launches["K6"]),
              max_abs_err=max(bf16_err, bf16_thermal_err, t_main["bf16_max_abs_err"]),
-             ms=t_main["bf16_ms"], plain_ms=t_main["bf16_plain_ms"], bound_ms=t_main["bound_ms"],
-             bound_by=t_main["bound_by"], library_ms=None, chain_floor_ms=floors["K6"],
+             ms=t_main["bf16_ms"], plain_ms=t_main["bf16_plain_ms"],
+             bound_ms=t_main["bf16_bound_ms"], bound_by=t_main["bf16_bound_by"], library_ms=None,
+             chain_floor_ms=floors["K6"],
              deterministic_ms=t_det["bf16_ms"],
              deterministic_chain_floor_ms=floors["K6 deterministic"]),
         dict(name="probe_add_one", route="cuda", source=pulse,
@@ -3154,7 +3200,8 @@ def main():
              launches_by_path=dict(measure_op_costs=k7_launches, scripts=script_launches["K7"]),
              max_abs_err=k7_err,
              ms=k7_ms, plain_ms=k7_plain_ms, bound_ms=k7_bound[0], bound_by=k7_bound[1],
-             library_ms=None, chain_floor_ms=None),
+             library_ms=None, chain_floor_ms=None, base2_bf16_ms=k7_bf16_ms,
+             base2_bf16_plain_ms=k7_bf16_plain_ms),
     ]
     RECORD["kernels"] = kernels
     write_record()

@@ -1,18 +1,17 @@
 // Per-substep arithmetic of the LLGS pulse kernel (csrc/pulse_integrator.cu):
 // the right-hand side, one Euler / stochastic Heun / RK4 substep with its
 // normalize-with-fallback, and the thermal field of one substep. Nothing here
-// knows of threads, warps or shared memory, so these functions compile for the
-// host too (a rehearsal with host versions of the few intrinsics), and the
-// kernel's scheduling lives apart from them.
+// knows of threads, warps or shared memory: the kernel's scheduling lives
+// apart from these functions.
 //
 // Each function mirrors the op order of the plain version
 // (spintorque_tpu_torch/physics/integrator.py and physics/llgs.py), so that
 // kernel and plain version agree bit for bit. Two rewrites differ in form from
 // the plain version and not in value:
 //
-//  * RK4's halving k / 2 is written 0.5 * k: both are the exact scaling of k,
-//    rounded once (and torch's CUDA division by a Python scalar multiplies by
-//    its reciprocal, here exact, anyway).
+//  * RK4's halving k / 2 is written kHalf * k (0.5 * k): both are the exact
+//    scaling of k, rounded once (and torch's CUDA division by a Python scalar
+//    multiplies by its reciprocal, here exact, anyway).
 //  * RK4's x / 6 is div6(x): q = RN(x * RN(1/6)), the exact remainder
 //    r = fma(-6, q, x), then RN(q + r * RN(1/6)) (Markstein's correction for
 //    a divisor known in advance). For 0, inf and NaN the product alone is
@@ -21,6 +20,27 @@
 //    float32 inputs is checked exhaustively on the card by
 //    spintorque_check_div6 (chip_smoke.py); the chain loses the division's
 //    subroutine and its slow-path branch.
+//
+// K6's stage ops (T = Bf16) are Hopper's native bf16 instructions, one each:
+// add.rn.bf16, sub.rn.bf16 and mul.rn.bf16 for +, - and * (the scalars 0.5
+// and 2 enter as the exact bf16 constants kHalf and kTwo), neg.bf16 for
+// unary minus. PyTorch
+// computes a bf16 op as the float op rounded once to bf16 (bf16_*_f32); the
+// native op rounds the exact result once. The two agree: a product of two
+// bf16 values is exact in float, and a float sum is exact unless the smaller
+// operand lies far below the bf16 rounding boundary, where one rounding and
+// two give the same bf16. Subnormals and the sign of zero are where that
+// argument could fail, so it is checked on the card over every input:
+// spintorque_check_bf16_ops (pulse_integrator.cu, run by chip_smoke.py)
+// compares each native op with its float form on all 2^32 ordered pairs
+// (add, sub, mul) and all 2^16 inputs (neg, x 0.5, x 2), bit for bit with
+// only two NaNs counted equal. Every stage op is native; none failed the
+// check on an H100, so none is emulated. Still in float: the rounding of the
+// state into T, the widening of the increment, div6 (no bf16 division:
+// widen, the float div6, round, as torch divides) and the thermal field's
+// rounding. No fused bf16 multiply-add, nor cuda_bf16.h's operators, which
+// ptxas may contract into one: it rounds once where PyTorch rounds twice
+// (the check's control op, which must differ, shows that on the card).
 //
 // normalize_with_fallback drops the plain version's second finiteness test
 // (ok & isfinite(m / norm)), which can never change the result: when ok
@@ -45,8 +65,8 @@ namespace spintorque {
 
 enum Method { kEuler = 0, kHeun = 1, kRk4 = 2 };
 
-// A bf16 value; each operation is a PyTorch bf16 op: float opmath, one
-// rounding to nearest even. A float operand stands for a Python scalar.
+// A bf16 value; each operation is a PyTorch bf16 op: the float op, rounded
+// once to nearest even.
 struct Bf16 {
   __nv_bfloat16 v;
 };
@@ -65,19 +85,51 @@ __device__ __forceinline__ Bf16 from_f32<Bf16>(float x) {
   return Bf16{__float2bfloat16_rn(x)};
 }
 
-__device__ __forceinline__ Bf16 operator+(Bf16 a, Bf16 b) {
+// PyTorch's bf16 ops as it computes them: widen, the float op, round.
+__device__ __forceinline__ Bf16 bf16_add_f32(Bf16 a, Bf16 b) {
   return from_f32<Bf16>(to_f32(a) + to_f32(b));
 }
-__device__ __forceinline__ Bf16 operator-(Bf16 a, Bf16 b) {
+__device__ __forceinline__ Bf16 bf16_sub_f32(Bf16 a, Bf16 b) {
   return from_f32<Bf16>(to_f32(a) - to_f32(b));
 }
-__device__ __forceinline__ Bf16 operator*(Bf16 a, Bf16 b) {
+__device__ __forceinline__ Bf16 bf16_mul_f32(Bf16 a, Bf16 b) {
   return from_f32<Bf16>(to_f32(a) * to_f32(b));
 }
-__device__ __forceinline__ Bf16 operator-(Bf16 a) { return from_f32<Bf16>(-to_f32(a)); }
-__device__ __forceinline__ Bf16 operator*(float a, Bf16 b) {
-  return from_f32<Bf16>(a * to_f32(b));
+__device__ __forceinline__ Bf16 bf16_neg_f32(Bf16 a) { return from_f32<Bf16>(-to_f32(a)); }
+
+__device__ __forceinline__ unsigned short bf16_bits(Bf16 a) { return __bfloat16_as_ushort(a.v); }
+__device__ __forceinline__ Bf16 bf16_from_bits(unsigned short b) {
+  return Bf16{__ushort_as_bfloat16(b)};
 }
+
+// The same ops as one Hopper (sm_90) instruction each: the stage ops of
+// T = Bf16. The explicit .rn rounds the exact result once and keeps ptxas
+// from contracting a multiply and an add into an FMA.
+__device__ __forceinline__ Bf16 bf16_add_rn(Bf16 a, Bf16 b) {
+  unsigned short r;
+  asm("add.rn.bf16 %0, %1, %2;" : "=h"(r) : "h"(bf16_bits(a)), "h"(bf16_bits(b)));
+  return bf16_from_bits(r);
+}
+__device__ __forceinline__ Bf16 bf16_sub_rn(Bf16 a, Bf16 b) {
+  unsigned short r;
+  asm("sub.rn.bf16 %0, %1, %2;" : "=h"(r) : "h"(bf16_bits(a)), "h"(bf16_bits(b)));
+  return bf16_from_bits(r);
+}
+__device__ __forceinline__ Bf16 bf16_mul_rn(Bf16 a, Bf16 b) {
+  unsigned short r;
+  asm("mul.rn.bf16 %0, %1, %2;" : "=h"(r) : "h"(bf16_bits(a)), "h"(bf16_bits(b)));
+  return bf16_from_bits(r);
+}
+__device__ __forceinline__ Bf16 bf16_neg_rn(Bf16 a) {
+  unsigned short r;
+  asm("neg.bf16 %0, %1;" : "=h"(r) : "h"(bf16_bits(a)));
+  return bf16_from_bits(r);
+}
+
+__device__ __forceinline__ Bf16 operator+(Bf16 a, Bf16 b) { return bf16_add_rn(a, b); }
+__device__ __forceinline__ Bf16 operator-(Bf16 a, Bf16 b) { return bf16_sub_rn(a, b); }
+__device__ __forceinline__ Bf16 operator*(Bf16 a, Bf16 b) { return bf16_mul_rn(a, b); }
+__device__ __forceinline__ Bf16 operator-(Bf16 a) { return bf16_neg_rn(a); }
 
 // x / 6.0f, bit for bit (see the note at the top).
 __device__ __forceinline__ float div6(float x) {
@@ -205,23 +257,26 @@ __device__ __forceinline__ bool substep(float& mx, float& my, float& mz, const T
     rhs<T, THERMAL, PLUS_Z>(sx, sy, sz, h[0], h[1], h[2], c, fx, fy, fz);
     rhs<T, THERMAL, PLUS_Z>(sx + dt * fx, sy + dt * fy, sz + dt * fz, h[0], h[1], h[2], c, gx, gy,
                             gz);
-    const T half_dt = 0.5f * dt;
+    const T kHalf = from_f32<T>(0.5f);
+    const T half_dt = kHalf * dt;
     dx = half_dt * (fx + gx);
     dy = half_dt * (fy + gy);
     dz = half_dt * (fz + gz);
   } else {
+    const T kHalf = from_f32<T>(0.5f);
+    const T kTwo = from_f32<T>(2.0f);
     T k1x, k1y, k1z, k2x, k2y, k2z, k3x, k3y, k3z, k4x, k4y, k4z;
     rhs<T, THERMAL, PLUS_Z>(sx, sy, sz, h[0], h[1], h[2], c, k1x, k1y, k1z);
     k1x = dt * k1x;
     k1y = dt * k1y;
     k1z = dt * k1z;
-    rhs<T, THERMAL, PLUS_Z>(sx + 0.5f * k1x, sy + 0.5f * k1y, sz + 0.5f * k1z, h[3], h[4], h[5], c,
-                            k2x, k2y, k2z);
+    rhs<T, THERMAL, PLUS_Z>(sx + kHalf * k1x, sy + kHalf * k1y, sz + kHalf * k1z, h[3], h[4],
+                            h[5], c, k2x, k2y, k2z);
     k2x = dt * k2x;
     k2y = dt * k2y;
     k2z = dt * k2z;
-    rhs<T, THERMAL, PLUS_Z>(sx + 0.5f * k2x, sy + 0.5f * k2y, sz + 0.5f * k2z, h[6], h[7], h[8], c,
-                            k3x, k3y, k3z);
+    rhs<T, THERMAL, PLUS_Z>(sx + kHalf * k2x, sy + kHalf * k2y, sz + kHalf * k2z, h[6], h[7],
+                            h[8], c, k3x, k3y, k3z);
     k3x = dt * k3x;
     k3y = dt * k3y;
     k3z = dt * k3z;
@@ -229,9 +284,9 @@ __device__ __forceinline__ bool substep(float& mx, float& my, float& mz, const T
     k4x = dt * k4x;
     k4y = dt * k4y;
     k4z = dt * k4z;
-    dx = div6(k1x + 2.0f * k2x + 2.0f * k3x + k4x);
-    dy = div6(k1y + 2.0f * k2y + 2.0f * k3y + k4y);
-    dz = div6(k1z + 2.0f * k2z + 2.0f * k3z + k4z);
+    dx = div6(k1x + kTwo * k2x + kTwo * k3x + k4x);
+    dy = div6(k1y + kTwo * k2y + kTwo * k3y + k4y);
+    dz = div6(k1z + kTwo * k2z + kTwo * k3z + k4z);
   }
   float nx = mx + to_f32(dx);
   float ny = my + to_f32(dy);

@@ -1,4 +1,4 @@
-// Serial dependent chains of one float operation, for per-op prices on NVIDIA
+// Serial dependent chains of one float (or bf16) operation, for per-op prices on NVIDIA
 // Hopper (sm_90a) (K7).
 //
 // Replaces the Pallas TPU kernel scripts/bench_vpu_op_costs.py::_chain_kernel
@@ -16,16 +16,31 @@
 // to fill every SM, the throughput shape); device memory is touched once per
 // lane. The build flags are K1's (--fmad=false, no fast math), so logf, expf,
 // cosf, sqrtf and the division are the accurate forms K1's chain runs, and the
-// prices are K1's prices.
+// prices are K1's prices. base2_bf16 runs base2's Newton step in K6's native
+// bf16 ops (llgs_substep.cuh's Bf16), on a bf16 value from the float input
+// to the float output, so its price is K6's stage op's.
 
 #include <cuda_runtime.h>
 
+#include "llgs_substep.cuh"
+
 namespace spintorque {
 
-enum ChainOp { kBase2 = 0, kSqrt, kRsqrt, kLog, kExp, kCos, kDiv, kSelect, kNumOps };
+enum ChainOp { kBase2 = 0, kSqrt, kRsqrt, kLog, kExp, kCos, kDiv, kSelect, kBase2Bf16, kNumOps };
+
+// The chain's value type: float, or bf16 for base2_bf16.
+template <int OP>
+struct ChainValue {
+  using type = float;
+};
+template <>
+struct ChainValue<kBase2Bf16> {
+  using type = Bf16;
+};
 
 template <int OP>
-__device__ __forceinline__ float chain_step(float x);
+__device__ __forceinline__ typename ChainValue<OP>::type chain_step(
+    typename ChainValue<OP>::type x);
 // Newton reciprocal step: 2 simple ops.
 template <>
 __device__ __forceinline__ float chain_step<kBase2>(float x) {
@@ -60,16 +75,24 @@ __device__ __forceinline__ float chain_step<kSelect>(float x) {
   return x > 0.5f ? x : x + 1e-7f;
 }
 
+// The same Newton step in native bf16 ops: x * (2 - x) holds x = 1 in bf16.
+template <>
+__device__ __forceinline__ Bf16 chain_step<kBase2Bf16>(Bf16 x) {
+  const Bf16 two = bf16_from_bits(0x4000);
+  return x * (two - x);
+}
+
 template <int OP>
 __global__ void op_chain_kernel(const float* x, float* y, int count, int steps) {
+  using T = typename ChainValue<OP>::type;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
-  float v = x[i];
+  T v = from_f32<T>(x[i]);
   // Partly unrolled: the loop counter's few instructions do not depend on v
   // and issue under the chain's latency.
 #pragma unroll 25
   for (int k = 0; k < steps; ++k) v = chain_step<OP>(v);
-  y[i] = v;
+  y[i] = to_f32(v);
 }
 
 template <int OP>
@@ -109,6 +132,8 @@ extern "C" int spintorque_op_chain(const float* x, float* y, int count, int op, 
       return static_cast<int>(launch_chain<kDiv>(x, y, count, steps, block, s));
     case kSelect:
       return static_cast<int>(launch_chain<kSelect>(x, y, count, steps, block, s));
+    case kBase2Bf16:
+      return static_cast<int>(launch_chain<kBase2Bf16>(x, y, count, steps, block, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -57,13 +57,17 @@
 //
 // K6 is the same kernel with the stage value type T = Bf16: the coefficients,
 // dt, a bf16 copy of the state and the thermal field enter the right-hand side
-// in bf16, and every operation on them widens to float, does the one op and
-// rounds back to nearest even, which is how PyTorch computes a bf16 tensor op.
-// The bf16 operators are written out rather than taken from cuda_bf16.h,
-// whose operators and __hfma may be contracted into fma.rn.bf16. The rounding
-// adds a cvt and a widening to every stage op of the chain, so K6 is slower
-// than K1 on this card: its stage arithmetic runs on the float pipes either
-// way.
+// in bf16, and each stage op is one native Hopper bf16 instruction
+// (add.rn.bf16, sub.rn.bf16, mul.rn.bf16, neg.bf16; llgs_substep.cuh), which
+// rounds the exact result once to nearest even. PyTorch computes a bf16 op
+// in float and rounds once; spintorque_check_bf16_ops below shows the two
+// equal on every input, so K6 stays bit for bit with its plain version. Its
+// chain is then K1's stage ops, one instruction each, plus the rounding of
+// the state into bf16, the widening of the increment and div6's widening and
+// rounding (ops.cuda_integrator.pulse_chain_depth). No fused bf16
+// multiply-add: fma.rn.bf16, and cuda_bf16.h's __hfma or its __hmul and
+// __hadd, which ptxas may contract into one, round once where PyTorch
+// rounds twice.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -359,6 +363,74 @@ __global__ void check_div6_kernel(unsigned long long* counts) {
   atomicAdd(&counts[1], payload);
 }
 
+// The bf16 ops the kernel computes natively, in the order of
+// spintorque_check_bf16_ops's records: x + y, x - y, x * y over every
+// ordered pair, then -x, 0.5 x and 2 x over every x; last the control,
+// x * y + x over every pair.
+enum Bf16CheckOp { kCheckAdd = 0, kCheckSub, kCheckMul, kCheckNeg, kCheckHalf, kCheckTwo,
+                   kCheckFmaControl, kNumCheckOps };
+
+// The check's control: x * y + z fused, rounded once, where PyTorch rounds
+// the product and then the sum. The kernel never uses it. The check must
+// find it different from PyTorch's form on some pairs; one that found it
+// equal everywhere would be comparing an op with itself.
+__device__ __forceinline__ Bf16 bf16_fma_rn(Bf16 x, Bf16 y, Bf16 z) {
+  unsigned short r;
+  asm("fma.rn.bf16 %0, %1, %2, %3;"
+      : "=h"(r)
+      : "h"(bf16_bits(x)), "h"(bf16_bits(y)), "h"(bf16_bits(z)));
+  return bf16_from_bits(r);
+}
+
+// Equal bits, or both NaN.
+__device__ __forceinline__ bool same_bf16(Bf16 a, Bf16 b) {
+  const unsigned short x = bf16_bits(a);
+  const unsigned short y = bf16_bits(b);
+  return x == y || ((x & 0x7fffu) > 0x7f80u && (y & 0x7fffu) > 0x7f80u);
+}
+
+// Over every ordered pair (x, y) of bf16 bit patterns (the pair's index is
+// x << 16 | y), each native op of the kernel against PyTorch's form of it
+// (the float op rounded to bf16), and the control; the unary ops over every
+// x (index x), the scalars 0.5 and 2 as the kernel has them (bf16
+// constants, a native multiply).
+// Adds each op's mismatches to counts[op] and lowers first[op] to its
+// first mismatching index.
+__global__ void check_bf16_ops_kernel(unsigned long long* counts, unsigned long long* first) {
+  const uint32_t stride = gridDim.x * blockDim.x;
+  unsigned long long bad[kNumCheckOps] = {};
+  unsigned long long low[kNumCheckOps];
+#pragma unroll
+  for (int k = 0; k < kNumCheckOps; ++k) low[k] = ~0ull;
+  const auto note = [&](int op, bool ok, uint64_t index) {
+    if (!ok) {
+      ++bad[op];
+      low[op] = min(low[op], static_cast<unsigned long long>(index));
+    }
+  };
+  for (uint64_t p = blockIdx.x * blockDim.x + threadIdx.x; p < (1ull << 32); p += stride) {
+    const Bf16 x = bf16_from_bits(static_cast<unsigned short>(p >> 16));
+    const Bf16 y = bf16_from_bits(static_cast<unsigned short>(p & 0xffffu));
+    note(kCheckAdd, same_bf16(bf16_add_rn(x, y), bf16_add_f32(x, y)), p);
+    note(kCheckSub, same_bf16(bf16_sub_rn(x, y), bf16_sub_f32(x, y)), p);
+    note(kCheckMul, same_bf16(bf16_mul_rn(x, y), bf16_mul_f32(x, y)), p);
+    note(kCheckFmaControl,
+         same_bf16(bf16_fma_rn(x, y, x), bf16_add_f32(bf16_mul_f32(x, y), x)), p);
+    if (p < (1ull << 16)) {
+      note(kCheckNeg, same_bf16(-y, bf16_neg_f32(y)), p);
+      note(kCheckHalf, same_bf16(from_f32<Bf16>(0.5f) * y, from_f32<Bf16>(0.5f * to_f32(y))), p);
+      note(kCheckTwo, same_bf16(from_f32<Bf16>(2.0f) * y, from_f32<Bf16>(2.0f * to_f32(y))), p);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kNumCheckOps; ++k) {
+    if (bad[k]) {
+      atomicAdd(&counts[k], bad[k]);
+      atomicMin(&first[k], low[k]);
+    }
+  }
+}
+
 }  // namespace spintorque
 
 // Plain C entry points, bound with ctypes. Each launches on `stream` and
@@ -396,5 +468,18 @@ extern "C" int spintorque_probe_add_one(const float* x, float* y, int count, voi
 // and to counts[1] those where both are NaN with other payloads.
 extern "C" int spintorque_check_div6(unsigned long long* counts, void* stream) {
   spintorque::check_div6_kernel<<<132 * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The exhaustive check of K6's native bf16 ops against PyTorch's: adds to
+// counts[op] (of kNumCheckOps zeroed counters) the inputs where the native
+// op and the float op rounded to bf16 differ (two NaNs count as equal), and
+// lowers first[op] (of kNumCheckOps set to all ones) to the first such
+// input's index, for the ops of Bf16CheckOp (the last, the control, must
+// differ).
+extern "C" int spintorque_check_bf16_ops(unsigned long long* counts, unsigned long long* first,
+                                         void* stream) {
+  spintorque::check_bf16_ops_kernel<<<132 * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      counts, first);
   return static_cast<int>(cudaGetLastError());
 }

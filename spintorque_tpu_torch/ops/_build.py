@@ -31,7 +31,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Collection, Dict, Optional
 
 import torch
 
@@ -145,12 +145,12 @@ def _load_library() -> None:
     _LIBRARY = build_library()
 
 
-def build_library(csrc: Optional[Path] = None) -> KernelLibrary:
+def build_library(csrc: Optional[Path] = None, optional: Collection[str] = ()) -> KernelLibrary:
     """Build the sources of ``csrc`` (the checkout's when None) into
     ``BUILD_DIR`` if needed (once per source digest), load and bind the
     library. Other sources with the same C interface (a parent commit's)
     build beside the checkout's, and ``use_library`` puts them in its
-    place."""
+    place; ``optional`` names the entry points they may lack."""
     csrc = CSRC if csrc is None else Path(csrc).resolve()
     out = BUILD_DIR / f"libspintorque_kernels_{source_digest(csrc)}.so"
     log_path = out.with_suffix(".log")
@@ -180,7 +180,7 @@ def build_library(csrc: Optional[Path] = None) -> KernelLibrary:
         os.replace(tmp, out)
     log = log_path.read_text() if log_path.is_file() else ""
     lib = ctypes.CDLL(str(out))
-    _bind(lib)
+    _bind(lib, optional)
     return KernelLibrary(lib, out, seconds, log)
 
 
@@ -220,19 +220,26 @@ def launch(fn, device, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def _bind(lib: ctypes.CDLL, optional: Collection[str] = ()) -> None:
+    """Sets the C types of the library's entry points. Each must be there
+    but those named in ``optional``, which a library built from an older
+    checkout's sources may lack (``kernel_fn`` raises for them at their
+    first call)."""
     # A pointer or the stream is c_void_p: ctypes would pass a bare Python
     # int as a 32-bit int.
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    # 19 pointers; batch, method, thermal, per_stage, plus_z, bf16; seed_lo,
-    # seed_hi, env_offset; stream.
-    lib.spintorque_pulse_integrate.argtypes = [p] * 19 + [i] * 6 + [u, u, u, p]
-    lib.spintorque_pulse_integrate.restype = i
-    lib.spintorque_probe_add_one.argtypes = [p, p, i, p]
-    lib.spintorque_probe_add_one.restype = i
-    # counts, stream.
-    lib.spintorque_check_div6.argtypes = [p, p]
-    lib.spintorque_check_div6.restype = i
-    # x, y, count, op, steps, block, stream.
-    lib.spintorque_op_chain.argtypes = [p, p, i, i, i, i, p]
-    lib.spintorque_op_chain.restype = i
+    signatures = {
+        # 19 pointers; batch, method, thermal, per_stage, plus_z, bf16;
+        # seed_lo, seed_hi, env_offset; stream.
+        "spintorque_pulse_integrate": [p] * 19 + [i] * 6 + [u, u, u, p],
+        "spintorque_probe_add_one": [p, p, i, p],
+        "spintorque_check_div6": [p, p],  # counts, stream
+        "spintorque_check_bf16_ops": [p, p, p],  # counts, first, stream
+        "spintorque_op_chain": [p, p, i, i, i, i, p],  # x, y, count, op, steps, block, stream
+    }
+    for name, argtypes in signatures.items():
+        if name in optional and not hasattr(lib, name):
+            continue
+        fn = getattr(lib, name)  # raises for a missing entry point
+        fn.argtypes = argtypes
+        fn.restype = i

@@ -98,10 +98,14 @@ def shard_env_offset(rank: int, local_batch: int) -> int:
 # Operations of one substep, counted from the kernel (and its plain
 # version): each add, multiply, divide, sqrt, log, compare or select counts
 # one, so a transcendental's instruction sequence is undercounted and the
-# bound computed from these is a lower bound. rhs: +z / general axis, with
-# the thermal adds. A Philox call is 10 rounds of two 32x32 multiplies
-# (high and low words), four xors and two key adds; its four normals are two
-# Box-Muller pairs of ~40 ops (uniforms, log, sqrt, the folded cos/sin).
+# bound computed from these is a lower bound. K6 counts the same ops, its
+# conversions (the state's rounding, the increment's widening, div6's) left
+# out, and runs most of them as native bf16 instructions, which the card
+# issues at twice the float32 rate (``pulse_bf16_ops_per_substep``). rhs:
+# +z / general axis, with the thermal adds. A Philox call is 10 rounds of
+# two 32x32 multiplies (high and low words), four xors and two key adds;
+# its four normals are two Box-Muller pairs of ~40 ops (uniforms, log,
+# sqrt, the folded cos/sin).
 _RHS_OPS = {True: 46, False: 64}
 _NORMALIZE_OPS = 9 + 7  # squares, sqrt, divides; finiteness compares, selects
 _FLUSH_OPS = 3 + 3  # the subnormal flush: a compare (of |x|) and a select a component
@@ -124,6 +128,20 @@ def pulse_ops_per_substep(config: IntegratorConfig, plus_z: bool) -> int:
     return ops
 
 
+def pulse_bf16_ops_per_substep(config: IntegratorConfig, plus_z: bool) -> int:
+    """The share of ``pulse_ops_per_substep`` that K6 (``bf16_rhs``) runs
+    as native bf16 instructions: every stage op, in the right-hand side and
+    around it, but RK4's three divisions by 6 and the state's add, which are
+    float; 0 without ``bf16_rhs``."""
+    if not config.bf16_rhs:
+        return 0
+    r = _RHS_OPS[plus_z]
+    # Euler: dt * f. Heun: the predictor's dt * f and add, half_dt, and
+    # half_dt * (f + g). RK4: dt * k, the stages' 0.5 * k and adds, and the
+    # weighted sum's two products and three adds a component.
+    return {"euler": r + 3, "heun": 2 * r + 6 + 1 + 6, "rk4": 4 * r + 12 + 15 + 15}[config.method]
+
+
 def pulse_work(n_substeps: Tensor, config: IntegratorConfig, plus_z: bool) -> Tuple[int, int]:
     """(operations, bytes) a pulse call over envs with these substep counts
     must do and move: each env's substeps at ``pulse_ops_per_substep``, and
@@ -140,19 +158,22 @@ def pulse_work(n_substeps: Tensor, config: IntegratorConfig, plus_z: bool) -> Tu
 # The dependent depth of one substep, counted from csrc/llgs_substep.cuh along
 # its longest path from the state to the next state, by op class (the
 # classes ops.op_chain prices). rhs: the deepest output of the right-hand
-# side in adds and multiplies (negations fold into their users), +z and
-# general axis; a thermal field adds its one add onto H. The stage ops of a
-# substep outside rhs: Euler dt * f; Heun dt * f, the predictor's add,
-# f + g and the half-step product; RK4 per stage dt * k, 0.5 * k and the
-# stage's add (two ops for the last stage), then the weighted sum's last
-# add. In float32 a T op is one op; in bf16 it is three (the widening, the
-# op, the rounding), plus the rounding of the state into T and the widening
-# of the increment. Then the state's add; RK4's div6 (a multiply and two
-# FMAs, then a select); normalize: the squared norm (a multiply and two
-# adds), the select that gives sqrt a finite input, sqrt, the compare and
-# the division; the subnormal flush's compare and select. A non-finite
-# increment takes the fallback to +z by a branch, which skips the division.
-# The thermal sampler runs on producer warps and adds no depth.
+# side in adds and multiplies (negations fold into their users in float32
+# and lie off the longest path in bf16), +z and general axis; a thermal
+# field adds its one add onto H. The stage ops of a substep outside rhs:
+# Euler dt * f; Heun dt * f, the predictor's add, f + g and the half-step
+# product; RK4 per stage dt * k, 0.5 * k and the stage's add (two ops for
+# the last stage), then the weighted sum's last add. A stage op is one op
+# of the stage type's class: ``simple`` in float32, ``bf16`` (one native
+# bf16 instruction) with bf16_rhs, which adds two conversions, the rounding
+# of the state into bf16 and the widening of the increment. Then the
+# state's add; RK4's div6 (a multiply and two FMAs, then a select; in bf16
+# also its widening and rounding); normalize: the squared norm (a multiply
+# and two adds), the select that gives sqrt a finite input, sqrt, the
+# compare and the division; the subnormal flush's compare and select. A
+# non-finite increment takes the fallback to +z by a branch, which skips
+# the division. The thermal sampler runs on producer warps and adds no
+# depth.
 _RHS_DEPTH = {True: 10, False: 14}
 
 
@@ -160,21 +181,23 @@ def pulse_chain_depth(
     config: IntegratorConfig, plus_z: bool, fallback: bool = False
 ) -> Dict[str, int]:
     """The kernel's dependent depth of one substep by op class: ``simple``
-    (add, multiply, compare, FMA, conversion), ``select``, ``div``,
+    (float32 add, multiply, compare, FMA, conversion), ``bf16`` (a native
+    bf16 add, subtract or multiply: K6's stage ops), ``select``, ``div``,
     ``sqrt``, ``log`` and ``cos`` (the last two 0: the sampler is off the
     chain). ``fallback``: the substep's increment is not finite, so the
     normalization falls back to +z and does not divide (``div`` 0)."""
     check_config(config)
     r = _RHS_DEPTH[plus_z] + int(config.thermal)
     stage_ops = {"euler": r + 1, "heun": 2 * r + 4, "rk4": 4 * r + 10}[config.method]
-    simple = 3 * stage_ops + 2 if config.bf16_rhs else stage_ops
+    bf16 = stage_ops if config.bf16_rhs else 0
+    simple = 2 if config.bf16_rhs else stage_ops  # the state's rounding, the increment's widening
     select = 2  # normalize's, before sqrt; the subnormal flush's
     if config.method == "rk4":
         simple += 3 + (2 if config.bf16_rhs else 0)  # div6, widened and rounded in bf16
         select += 1
     simple += 1 + 3 + 1 + 1  # the state's add; the squared norm; the compare; the flush's
-    return {"simple": simple, "select": select, "div": int(not fallback), "sqrt": 1, "log": 0,
-            "cos": 0}
+    return {"simple": simple, "bf16": bf16, "select": select, "div": int(not fallback),
+            "sqrt": 1, "log": 0, "cos": 0}
 
 
 def pulse_chain_floor_ms(
@@ -187,7 +210,8 @@ def pulse_chain_floor_ms(
     """The least time of a pulse call at the chain's latency: the longest
     env's substeps times ``pulse_chain_depth`` (on the fallback path when
     ``fallback``) priced at ``latency_ns`` (ns per dependent op by class,
-    ``ops.op_chain.measure_op_costs``'s ``latency_ns``). The fallback path
+    ``ops.op_chain.measure_op_costs``'s ``latency_ns``; ``bf16`` is needed
+    only with ``bf16_rhs``). The fallback path
     is the shorter, so its floor holds whichever path the data takes. Reads
     ``n_substeps`` to the host."""
     n_max = int(n_substeps.max()) if n_substeps.numel() else 0
@@ -284,6 +308,45 @@ def check_div6(device="cuda") -> Tuple[int, int]:
         raise RuntimeError(f"div6 check kernel launch failed: cudaError {rc}")
     bad, payload = counts.tolist()
     return bad, payload
+
+
+# The ops of spintorque_check_bf16_ops, in its order (Bf16CheckOp in
+# csrc/pulse_integrator.cu): binary over every ordered pair of bf16 values,
+# unary ("neg", "half" = 0.5 x, "two" = 2 x) over every bf16 value. K6
+# computes every one of them natively. Last the check's control, "fma"
+# (x * y + x fused, rounded once where PyTorch rounds twice), over every
+# pair: K6 never uses it, and the check must find it different.
+BF16_BINARY_OPS = ("add", "sub", "mul")
+BF16_OPS = BF16_BINARY_OPS + ("neg", "half", "two")
+BF16_CONTROL = "fma"
+
+
+def check_bf16_ops(device="cuda") -> Dict[str, Tuple[int, Optional[Tuple[int, ...]]]]:
+    """Runs the exhaustive check of K6's native bf16 ops against PyTorch's
+    bf16 ops (the float op rounded once to bf16) on the card: all 2^32
+    ordered pairs of bf16 bit patterns for add, sub, mul and the control,
+    all 2^16 for neg and the products by 0.5 and by 2; two NaNs count as
+    equal, any other difference in bits (the sign of zero too) as a
+    mismatch. Returns per op of ``BF16_OPS`` and for ``BF16_CONTROL`` (its
+    mismatches, the bit patterns of its first mismatching input: (a, b) for
+    a binary op, (a,) for a unary one, None without a mismatch).
+    Synchronizes."""
+    ops = BF16_OPS + (BF16_CONTROL,)
+    counts = torch.zeros(len(ops), dtype=torch.int64, device=device)
+    first = torch.full((len(ops),), -1, dtype=torch.int64, device=device)  # all ones
+    rc = _build.launch(_build.kernel_fn("spintorque_check_bf16_ops"), counts.device,
+                       counts.data_ptr(), first.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"bf16 op check kernel launch failed: cudaError {rc}")
+    out = {}
+    for op, bad, index in zip(ops, counts.tolist(), first.tolist()):
+        pair = None
+        if bad:
+            index &= 2**64 - 1
+            binary = op in BF16_BINARY_OPS or op == BF16_CONTROL
+            pair = (index >> 16, index & 0xFFFF) if binary else (index,)
+        out[op] = (bad, pair)
+    return out
 
 
 def _check_tensor(name: str, t, device, shape, dtype=torch.float32) -> None:

@@ -17,7 +17,9 @@ launch shapes:
 
 The companion simple ops of a step (the ``+ 1.0`` of ``log``, the scale of
 ``exp``, ...) are priced at base2/2, as the JAX script prices them, and
-subtracted to isolate each op.
+subtracted to isolate each op. ``base2_bf16``, which the JAX script lacks,
+is base2's step in K6's native bf16 ops; half of it prices a ``bf16`` op
+of K6's chain (``ops.cuda_integrator.pulse_chain_depth``).
 
 From x = 1 every chain stays at its fixed point, so a timed chain runs on
 ones, but there a copy, a skipped loop or the wrong op would agree with the
@@ -38,10 +40,19 @@ from .cuda_integrator import LaunchCounter
 
 Tensor = torch.Tensor
 
+
+def _base2_bf16(x: Tensor) -> Tensor:
+    """base2's Newton step in torch's bf16 ops, on x rounded to bf16 (exact
+    after the first step), widened back to float32."""
+    b = x.to(torch.bfloat16)
+    return (b * (2.0 - b)).float()
+
+
 # The chain steps, in the order of csrc/op_chain.cu's ChainOp. Every step
 # holds x at a float32 fixed point near 1 and is nonlinear in x. The
 # division is tensor by tensor: CUDA turns a Python scalar's division into
-# a reciprocal multiply.
+# a reciprocal multiply. base2_bf16 is base2 in K6's native bf16 ops (the
+# kernel keeps the chain in bf16 between its float input and output).
 OPS = {
     "base2": lambda x: x * (2.0 - x),  # Newton-reciprocal step; 2 simple ops
     "sqrt": torch.sqrt,
@@ -51,19 +62,27 @@ OPS = {
     "cos": lambda x: torch.cos(x) + 0.4596976941,
     "div": lambda x: torch.full_like(x, 2.0) / (x + 1.0),
     "select": lambda x: torch.where(x > 0.5, x, x + 1e-7),
+    "base2_bf16": _base2_bf16,  # 2 native bf16 ops
 }
 # Simple ops beside the headline op in one step, priced at base2/2 each.
 OP_COMPANIONS = {
     "base2": 0, "sqrt": 0, "rsqrt": 0, "log": 1, "exp": 1, "cos": 1, "div": 1, "select": 1,
+    "base2_bf16": 0,
 }
+# The steps of two ops of one class (a subtract and a multiply): each prices
+# its class at half the step, ``simple`` (float32) and ``bf16``.
+PAIR_CLASSES = {"base2": "simple", "base2_bf16": "bf16"}
 _OP_INDEX = {name: i for i, name in enumerate(OPS)}
 # Where each chain moves for a few steps: log's and exp's fixed points are
 # neutral, approached from above and from below (from the other side the
 # chain runs off to NaN or inf), and select moves only below 0.5, by 1e-7 a
 # step, so its inputs are small enough for that to show at CHECK_RTOL.
+# base2_bf16 starts further below 1, where each of its steps still moves a
+# bf16 value (from 0.55 it would reach 1 in bf16 within three steps).
 CHECK_DOMAIN = {
     "base2": (0.55, 1.45), "sqrt": (0.55, 1.45), "rsqrt": (0.55, 1.45), "log": (1.0, 1.45),
     "exp": (0.55, 1.0), "cos": (0.55, 1.45), "div": (0.55, 1.45), "select": (1e-6, 1e-5),
+    "base2_bf16": (0.1, 0.5),
 }
 CHECK_STEPS = 3
 CHECK_RTOL = 1e-6
@@ -124,10 +143,12 @@ def slope_ns_per_step(t_lo_ms: float, t_hi_ms: float, lo: int, hi: int) -> float
 
 def isolate(step_ns: Dict[str, float]) -> Dict[str, float]:
     """Each op's own price: its step's price less its companion simple ops
-    at base2/2 each; ``simple`` is base2/2."""
+    at base2/2 each; ``simple`` is base2/2 and ``bf16`` (when measured)
+    base2_bf16/2."""
     simple = step_ns["base2"] / 2.0
-    out = {op: step_ns[op] - OP_COMPANIONS[op] * simple for op in step_ns if op != "base2"}
-    out["simple"] = simple
+    out = {op: step_ns[op] - OP_COMPANIONS[op] * simple for op in step_ns
+           if op not in PAIR_CLASSES}
+    out.update({cls: step_ns[op] / 2.0 for op, cls in PAIR_CLASSES.items() if op in step_ns})
     return out
 
 

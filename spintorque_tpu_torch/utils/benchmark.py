@@ -13,8 +13,9 @@ On a mesh (an env built with ``mesh=``) every rank runs the same program on
 its rows; the ranks start each timed block together, and a rate is the
 global env-steps over the slowest rank's time (``all_reduce(MAX)``).
 
-``PEAK_FLOPS``, ``PEAK_FP32_INSTR`` and ``PEAK_BYTES`` are the card's
-peaks that bounds and utilizations are priced at.
+``PEAK_FLOPS``, ``PEAK_FP32_INSTR``, ``PEAK_BF16_INSTR`` and
+``PEAK_BYTES`` are the card's peaks that bounds and utilizations are priced
+at.
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ PEAK_FLOPS = 67e12  # float32, outside the tensor cores (an FMA is two flops)
 # kernels are built with --fmad=false, so an add or a multiply is one
 # instruction: the rate every bound prices operations at.
 PEAK_FP32_INSTR = PEAK_FLOPS / 2
+# bf16 adds and multiplies outside the tensor cores: 133.8 TFLOP/s, twice
+# the float32 rate, since one instruction works on a pair of bf16 values
+# (HADD2/HMUL2 on .bf16x2). K6's native bf16 stage ops are priced at it.
+PEAK_BF16_INSTR = 2 * PEAK_FP32_INSTR
 PEAK_BYTES = 3.35e12  # HBM3, bytes/s
 
 

@@ -165,6 +165,34 @@ def test_bf16_kernel_matches_plain(cuda, method, axis):
                   integrate_pulse_plain(m0, spans, cur, p, hot, seed=5), tol=1e-5)
 
 
+def test_native_bf16_ops_equal_torch_bf16_ops(cuda):
+    """Every bf16 op K6 computes natively (add, sub, mul over all 2^32
+    ordered pairs; neg, x 0.5, x 2 over all 2^16 values) equals torch's
+    bf16 op, the float op rounded once, bit for bit (two NaNs equal). The
+    control, a fused multiply-add against torch's two roundings, differs:
+    the check can fail."""
+    out = ci.check_bf16_ops(cuda)
+    assert {op: out[op] for op in ci.BF16_OPS} == {op: (0, None) for op in ci.BF16_OPS}
+    bad, first = out[ci.BF16_CONTROL]
+    assert bad > 0 and len(first) == 2
+
+
+def test_bf16_op_chain_equals_its_plain_version(cuda):
+    """K7's base2_bf16 chain, in K6's native bf16 ops, equals torch's bf16
+    chain on the card bit for bit, and holds x = 1."""
+    from spintorque_tpu_torch.ops import op_chain as oc
+
+    for block in (1024, 256):
+        x = oc.check_input("base2_bf16", 2048, device=cuda)
+        before = oc.OP_CHAIN_LAUNCHES.count
+        y = oc.op_chain(x, "base2_bf16", oc.CHECK_STEPS, block)
+        torch.cuda.synchronize()
+        assert oc.OP_CHAIN_LAUNCHES.count - before == 1
+        assert torch.equal(y, oc.op_chain_plain(x, "base2_bf16", oc.CHECK_STEPS))
+    ones = torch.ones(1024, device=cuda)
+    assert torch.equal(oc.op_chain(ones, "base2_bf16", 10_000), ones)
+
+
 def _trainer(cuda, **env_kw):
     env = SpinTorqueEnv(batch_size=64, device=cuda, max_duration=1e-10, max_steps=4, **env_kw)
     return PPOTrainer(env, PPOConfig(rollout_steps=4, num_epochs=2, num_minibatches=2,

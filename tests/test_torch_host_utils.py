@@ -67,7 +67,7 @@ def test_first_build_runs_once_under_threads(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
     monkeypatch.setattr(_build, "_run", fake_run)
     monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: types.SimpleNamespace(path=path))
-    monkeypatch.setattr(_build, "_bind", lambda lib: None)
+    monkeypatch.setattr(_build, "_bind", lambda lib, optional=(): None)
     barrier = threading.Barrier(8)
 
     def first_use(_):
@@ -103,7 +103,7 @@ def test_library_of_other_sources_builds_beside_and_takes_its_place(monkeypatch,
     monkeypatch.setattr(_build, "_run", fake_run)
     monkeypatch.setattr(_build.ctypes, "CDLL",
                         lambda path: types.SimpleNamespace(path=path, entry=path))
-    monkeypatch.setattr(_build, "_bind", lambda lib: None)
+    monkeypatch.setattr(_build, "_bind", lambda lib, optional=(): None)
     other = tmp_path / "csrc"
     other.mkdir()
     for src in _build._sources():
@@ -118,6 +118,104 @@ def test_library_of_other_sources_builds_beside_and_takes_its_place(monkeypatch,
     assert _build.load_library() is theirs and _build.kernel_fn("entry") == str(theirs.path)
     _build.use_library(own)
     assert _build.kernel_fn("entry") == str(own.path)
+
+
+# The entry points of a library built from sources older than the bf16 op check.
+OLDER_ENTRY_POINTS = ["spintorque_pulse_integrate", "spintorque_probe_add_one",
+                      "spintorque_check_div6", "spintorque_op_chain"]
+
+
+def test_bind_leaves_out_entry_points_an_older_library_lacks(monkeypatch):
+    """A parent commit's library may lack a newer entry point (the bf16 op
+    check): bound with it optional, the entry points it has get their
+    types, and ``kernel_fn`` raises for the missing one at its first
+    call."""
+    older = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in OLDER_ENTRY_POINTS})
+    _build._bind(older, optional={"spintorque_check_bf16_ops"})
+    for n in OLDER_ENTRY_POINTS:
+        fn = getattr(older, n)
+        assert fn.restype is _build.ctypes.c_int and fn.argtypes[-1] is _build.ctypes.c_void_p
+    assert len(older.spintorque_pulse_integrate.argtypes) == 29
+    monkeypatch.setattr(_build, "_KERNEL_FNS", {})
+    monkeypatch.setattr(_build, "_LIBRARY", _build.KernelLibrary(older, Path("old.so"), 0.0, ""))
+    assert _build.kernel_fn("spintorque_check_div6") is older.spintorque_check_div6
+    with pytest.raises(AttributeError):
+        _build.kernel_fn("spintorque_check_bf16_ops")
+    newer = types.SimpleNamespace(
+        **{n: types.SimpleNamespace() for n in OLDER_ENTRY_POINTS + ["spintorque_check_bf16_ops"]})
+    _build._bind(newer, optional={"spintorque_check_bf16_ops"})
+    assert len(newer.spintorque_check_bf16_ops.argtypes) == 3  # counts, first, stream
+
+
+def test_bind_requires_every_entry_point_of_its_own_sources():
+    """The checkout's own library binds with nothing optional: one that
+    lacks an entry point fails when it loads, not at the first launch."""
+    older = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in OLDER_ENTRY_POINTS})
+    with pytest.raises(AttributeError, match="spintorque_check_bf16_ops"):
+        _build._bind(older)
+    del older.spintorque_check_div6  # not optional, missing: raises though others are optional
+    with pytest.raises(AttributeError, match="spintorque_check_div6"):
+        _build._bind(older, optional={"spintorque_check_bf16_ops", "spintorque_op_chain"})
+    from spintorque_tpu_torch.utils import compare_kernel_sources as cks
+
+    assert cks.BASE_MAY_LACK == {"spintorque_check_bf16_ops"}
+
+
+def test_compare_kernel_sources_arguments():
+    from spintorque_tpu_torch.utils import compare_kernel_sources as cks
+
+    args = cks.parse_args(["--base", "build/parent"])
+    assert vars(args) == {"base": "build/parent", "out": None}
+    args = cks.parse_args(["--base", "p", "--out", "build/compare.json"])
+    assert vars(args) == {"base": "p", "out": "build/compare.json"}
+    for bad in ([], ["--out", "o"], ["--base", "p", "--kernels", "K6"]):
+        with pytest.raises(SystemExit):
+            cks.parse_args(bad)
+    assert cks.KERNELS == {"K1": False, "K6": True}  # K6 is the bf16_rhs pulse
+
+
+def test_compare_kernel_sources_summary_keys():
+    """Every call of K1 and K6, thermal and deterministic, at each batch
+    has its medians, base spread, wins and ratio in the JSON line."""
+    from spintorque_tpu_torch.utils import compare_kernel_sources as cks
+
+    keys = [f"{k}_{m}_B{b}" for b in (4096, 65536) for k in cks.KERNELS for m in cks.MODES]
+    assert keys[:4] == ["K1_thermal_B4096", "K1_deterministic_B4096", "K6_thermal_B4096",
+                        "K6_deterministic_B4096"]
+    turns = 2 * cks.ROUNDS
+    times = {"base": {k: [2.0 + 0.01 * i for i in range(turns)] for k in keys},
+             "this": {k: [1.0 + 0.01 * i for i in range(turns)] for k in keys}}
+    out = cks.summarize(times, {k: True for k in keys})
+    assert set(out) == {"bitwise_equal", "median_ms", "base_iqr_ms", "pairs",
+                        "pairs_this_faster", "this_over_base", "ms_in_turns"}
+    for field in ("base_iqr_ms", "pairs_this_faster", "this_over_base", "bitwise_equal"):
+        assert list(out[field]) == keys, field
+    assert out["pairs"] == turns
+    assert out["pairs_this_faster"] == {k: turns for k in keys}
+    mid = 0.01 * (turns - 1) / 2
+    assert out["median_ms"]["base"][keys[0]] == pytest.approx(2.0 + mid)
+    assert out["this_over_base"][keys[-1]] == pytest.approx((1.0 + mid) / (2.0 + mid))
+    assert out["base_iqr_ms"][keys[0]] == pytest.approx(0.01 * (turns - 1) / 2)
+    json.loads(json.dumps(out))
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Used {regs} registers\n"
+        for name, regs in (
+            ("_ZN10spintorque12pulse_kernelIfLi2ELb1ELb0ELb1EEEvNS_9PulseArgsE", 64),
+            ("_ZN10spintorque12pulse_kernelINS_4Bf16ELi2ELb1ELb0ELb1EEEvNS_9PulseArgsE", 72),
+            ("_ZN10spintorque21check_bf16_ops_kernelEPyS0_", 30)))
+    rep = cks.pulse_ptxas(log)
+    assert {k: [r["registers"] for r in v.values()] for k, v in rep.items()} == {
+        "K1": [64], "K6": [72]}
+
+
+def test_compare_kernel_sources_needs_the_card(tmp_path):
+    from spintorque_tpu_torch.utils import compare_kernel_sources as cks
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal without a card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cks.main(["--base", str(tmp_path)])
 
 
 def test_launch_counter_counts_every_thread():

@@ -68,12 +68,32 @@ def test_slope_and_isolation_on_synthetic_times():
     assert "base2" not in iso
 
 
+def test_bf16_step_prices_the_bf16_class():
+    """base2_bf16's step is two native bf16 ops: half of it prices the
+    ``bf16`` class of K6's chain, as half of base2 prices ``simple``."""
+    iso = oc.isolate({"base2": 8.4, "base2_bf16": 9.0, "sqrt": 9.0})
+    assert iso == pytest.approx({"simple": 4.2, "bf16": 4.5, "sqrt": 9.0})
+    assert "base2_bf16" not in iso
+
+
+def test_bf16_chain_rounds_every_step_to_bf16():
+    """The plain base2_bf16 chain is torch's bf16 ops: every value it gives
+    is a bf16 value, and one step equals x * (2 - x) in bf16."""
+    x = oc.check_input("base2_bf16", 4096, seed=2)
+    b = x.to(torch.bfloat16)
+    assert torch.equal(oc.op_chain_plain(x, "base2_bf16", 1), (b * (2.0 - b)).float())
+    y = oc.op_chain_plain(x, "base2_bf16", oc.CHECK_STEPS)
+    assert torch.equal(y, y.to(torch.bfloat16).float())
+    assert not torch.equal(y, oc.op_chain_plain(x, "base2", oc.CHECK_STEPS))
+
+
 def test_kernel_wrapper_raises_off_the_card():
     with pytest.raises(ValueError):
         oc.op_chain(torch.ones(1024), "base2", 1)
     with pytest.raises(RuntimeError):
         oc.measure_op_costs(device="cpu")
-    assert list(oc.OPS) == ["base2", "sqrt", "rsqrt", "log", "exp", "cos", "div", "select"]
+    assert list(oc.OPS) == ["base2", "sqrt", "rsqrt", "log", "exp", "cos", "div", "select",
+                            "base2_bf16"]
 
 
 @pytest.mark.cuda

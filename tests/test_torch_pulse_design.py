@@ -33,14 +33,24 @@ RHS_EVALUATIONS = {"euler": 1, "heun": 2, "rk4": 4}
 
 # (method, plus_z, bf16) -> simple ops on the chain, deterministic; counted
 # by hand from csrc/llgs_substep.cuh (rhs +z 10, general 14; the subnormal
-# flush's compare one).
+# flush's compare one). With bf16 the stage ops are native bf16 ops
+# (BF16_DEPTH), and the simple ones are the state's rounding, the
+# increment's widening, div6 with its widening and rounding (RK4), the
+# state's add, the squared norm, the compare and the flush's compare.
 SIMPLE_DEPTH = {
     ("euler", True, False): 17, ("euler", False, False): 21,
     ("heun", True, False): 30, ("heun", False, False): 38,
     ("rk4", True, False): 59, ("rk4", False, False): 75,
-    ("euler", True, True): 41, ("euler", False, True): 53,
-    ("heun", True, True): 80, ("heun", False, True): 104,
-    ("rk4", True, True): 163, ("rk4", False, True): 211,
+    ("euler", True, True): 8, ("euler", False, True): 8,
+    ("heun", True, True): 8, ("heun", False, True): 8,
+    ("rk4", True, True): 13, ("rk4", False, True): 13,
+}
+# (method, plus_z) -> native bf16 ops on K6's chain: the float32 chain's
+# stage ops, one instruction each.
+BF16_DEPTH = {
+    ("euler", True): 11, ("euler", False): 15,
+    ("heun", True): 24, ("heun", False): 32,
+    ("rk4", True): 50, ("rk4", False): 66,
 }
 
 
@@ -52,6 +62,7 @@ def test_chain_depth_counts(method, plus_z, bf16):
     depth = ci.pulse_chain_depth(cfg, plus_z)
     assert depth == {
         "simple": SIMPLE_DEPTH[(method, plus_z, bf16)],
+        "bf16": BF16_DEPTH[(method, plus_z)] if bf16 else 0,
         # div6's; normalize's, before sqrt; the subnormal flush's
         "select": 3 if method == "rk4" else 2,
         "div": 1,  # normalize's division by the norm; RK4's / 6 is div6
@@ -68,26 +79,91 @@ def test_chain_depth_counts(method, plus_z, bf16):
 def test_thermal_adds_no_sampler_depth(name, plus_z):
     """The sampler (Philox, log, sqrt, cos/sin) runs on producer warps: a
     thermal substep's chain is the deterministic one plus the field's one add
-    onto H per right-hand side evaluation."""
+    onto H per right-hand side evaluation, in the stage type's class (one
+    native bf16 add with bf16)."""
     hot = CONFIGS[name]
     cold = hot._replace(thermal=False)
     for bf16 in (False, True):
         d_hot = ci.pulse_chain_depth(hot._replace(bf16_rhs=bf16), plus_z)
         d_cold = ci.pulse_chain_depth(cold._replace(bf16_rhs=bf16), plus_z)
-        per_add = 3 if bf16 else 1
-        assert d_hot["simple"] - d_cold["simple"] == per_add * RHS_EVALUATIONS[hot.method]
-        assert {k: v for k, v in d_hot.items() if k != "simple"} == {
-            k: v for k, v in d_cold.items() if k != "simple"}
+        cls = "bf16" if bf16 else "simple"
+        assert d_hot[cls] - d_cold[cls] == RHS_EVALUATIONS[hot.method]
+        assert {k: v for k, v in d_hot.items() if k != cls} == {
+            k: v for k, v in d_cold.items() if k != cls}
         assert d_hot["log"] == d_hot["cos"] == 0
 
 
-PRICES_NS = {"simple": 4.0, "select": 6.0, "div": 65.0, "sqrt": 46.0, "log": 103.0, "cos": 116.0}
+PRICES_NS = {"simple": 4.0, "bf16": 5.0, "select": 6.0, "div": 65.0, "sqrt": 46.0, "log": 103.0,
+             "cos": 116.0}
 
 
 def test_chain_floor_of_the_main_config():
     depth = ci.pulse_chain_depth(CONFIGS["rk4_per_substep"], True)
     per_substep_ns = sum(v * PRICES_NS[k] for k, v in depth.items())
     assert per_substep_ns == pytest.approx(63 * 4.0 + 3 * 6.0 + 65.0 + 46.0)
+
+
+def test_bf16_chain_floor_prices_native_ops():
+    """K6's floor of the main config prices its 54 native bf16 ops (50
+    stage ops and 4 thermal adds) at the bf16 latency and its 13
+    conversions and float ops at the float one: RK4 per substep, +z,
+    thermal, on the fallback path."""
+    cfg = CONFIGS["rk4_per_substep"]._replace(bf16_rhs=True)
+    depth = ci.pulse_chain_depth(cfg, True, fallback=True)
+    assert depth == {"simple": 13, "bf16": 54, "select": 3, "div": 0, "sqrt": 1, "log": 0,
+                     "cos": 0}
+    n = torch.tensor([5001, 17], dtype=torch.int32)
+    want = 5001 * (13 * 4.0 + 54 * 5.0 + 3 * 6.0 + 46.0) * 1e-6
+    assert ci.pulse_chain_floor_ms(n, cfg, True, PRICES_NS, fallback=True) == pytest.approx(want)
+    # K1's floor needs no bf16 price.
+    no_bf16 = {k: v for k, v in PRICES_NS.items() if k != "bf16"}
+    assert ci.pulse_chain_floor_ms(n, CONFIGS["rk4_per_substep"], True, no_bf16) > 0
+
+
+def test_bf16_operators_are_native_rounded_ptx():
+    """The device forms of Bf16's +, -, * and unary - are one PTX
+    instruction each with an explicit round to nearest (neg is exact), so
+    ptxas contracts none into an FMA; the header names no fused bf16
+    multiply-add and none of cuda_bf16.h's operators, which may be
+    contracted. The scalars 0.5 and 2 are bf16 constants."""
+    text = (CSRC / "llgs_substep.cuh").read_text()
+    for op in ("add", "sub", "mul"):
+        assert re.search(rf'asm\("{op}\.rn\.bf16 %0, %1, %2;"', text), op
+    assert re.search(r'asm\("neg\.bf16 %0, %1;"', text)
+    assert not re.search(r"\b(add|sub|mul)\.bf16\b", text)  # no op without .rn
+    for name in ("fma.rn.bf16", "__hfma", "__hmul", "__hadd"):
+        assert name not in text, name
+    for op, sym in (("add", "+"), ("sub", "-"), ("mul", "*")):
+        assert f"Bf16 operator{sym}(Bf16 a, Bf16 b) {{ return bf16_{op}_rn(a, b); }}" in text
+        body = re.search(rf"Bf16 bf16_{op}_rn\(Bf16 a, Bf16 b\) \{{(.*?)\n\}}", text, re.S)
+        assert body and f"{op}.rn.bf16" in body.group(1), op
+    assert "Bf16 operator-(Bf16 a) { return bf16_neg_rn(a); }" in text
+    # The scalars enter as exact bf16 constants: no float * Bf16 operator.
+    assert "operator*(float" not in text
+    assert "const T kHalf = from_f32<T>(0.5f);" in text
+    assert "const T kTwo = from_f32<T>(2.0f);" in text
+
+
+@pytest.mark.parametrize("plus_z", [True, False])
+@pytest.mark.parametrize("method", ["euler", "heun", "rk4"])
+def test_bf16_ops_are_the_stage_ops(method, plus_z):
+    """K6's share of a substep's operations that runs as native bf16
+    instructions: every stage op but RK4's divisions by 6 and the state's
+    add, which are float (the rest, normalization, flush, the failed flag
+    and the sampler, is float too); none in K1."""
+    f32 = IntegratorConfig(method=method)
+    bf16 = f32._replace(bf16_rhs=True)
+    assert ci.pulse_bf16_ops_per_substep(f32, plus_z) == 0
+    assert ci.pulse_ops_per_substep(bf16, plus_z) == ci.pulse_ops_per_substep(f32, plus_z)
+    float_ops = ci._NORMALIZE_OPS + ci._FLUSH_OPS + 4 + 3 + (3 if method == "rk4" else 0)
+    assert ci.pulse_bf16_ops_per_substep(bf16, plus_z) == (
+        ci.pulse_ops_per_substep(bf16, plus_z) - float_ops)
+    for thermal in (False, True):
+        hot = bf16._replace(thermal=thermal)
+        assert ci.pulse_bf16_ops_per_substep(hot, plus_z) == ci.pulse_bf16_ops_per_substep(
+            bf16, plus_z)
+    if method == "rk4" and plus_z:
+        assert ci.pulse_bf16_ops_per_substep(bf16, plus_z) == 226  # of 258
 
 
 @pytest.mark.parametrize("batch", [1, 31, 100, 4096, 65536])
