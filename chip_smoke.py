@@ -241,16 +241,16 @@ def global_actions(batch, steps, seed):
 
 def env_block(env, seed, actions, mesh=None):
     """Reset ``env`` from ``seed`` and step it through ``actions`` (global
-    rows; this rank's on a mesh). Returns the stacked obs, reward and m on
-    the host."""
+    rows; this rank's on a mesh, all of them where the mesh replicates the
+    batch). Returns the stacked obs, reward and m on the host."""
     import torch
 
-    from spintorque_tpu_torch.parallel import shard_batch
+    from spintorque_tpu_torch.parallel import local_rows
 
     state, _ = env.reset(seed)
     obs, rew, ms = [], [], []
     for a in actions:
-        a = a if mesh is None else shard_batch(a, mesh)
+        a = a if mesh is None else a[local_rows(a.shape[0], mesh)]
         state, ts = env.step(state, a.to(env.device))
         obs.append(ts.obs)
         rew.append(ts.reward)
@@ -258,10 +258,12 @@ def env_block(env, seed, actions, mesh=None):
     return {k: torch.stack(v).cpu() for k, v in (("obs", obs), ("reward", rew), ("m", ms))}
 
 
-def data_parallel_rank(batch, seed, actions):
+def data_parallel_rank(batch, seed, actions, odd_batch, odd_actions):
     """One rank of the data-parallel phase: a 16-step env block and two PPO
     train steps (one timed) at global batch ``batch`` with the default
-    configs, on this rank's rows; launch counts read around each."""
+    configs, on this rank's rows; then a 16-step env block at ``odd_batch``,
+    which does not divide the ranks, so every rank holds and steps all of
+    it; launch counts read around each."""
     import torch
 
     from spintorque_tpu_torch.envs import SpinTorqueEnv
@@ -284,7 +286,15 @@ def data_parallel_rank(batch, seed, actions):
     out = measure_train_throughput(trainer, warmup=1, steps=1)
     train_launches = [c.count for c in counters]
     params = torch.cat([p.detach().reshape(-1) for p in out["state"].network.parameters()])
+    odd_env = SpinTorqueEnv(batch_size=odd_batch, mesh=mesh)
+    for c in counters:
+        c.reset()
+    odd_block = env_block(odd_env, seed, odd_actions, mesh)
+    torch.cuda.synchronize()
+    odd_launches = [c.count for c in counters]
     return dict(block=block, env_launches=env_launches, train_launches=train_launches,
+                odd_block=odd_block, odd_launches=odd_launches,
+                odd_rows=(odd_env.local_batch_size, odd_env.replicated),
                 rank=mesh.data_rank, rows=env.local_batch_size, params=params.cpu(),
                 **{k: out[k] for k in ("rates", "rollout_ms", "update_ms", "metrics",
                                        "world_size", "backend", "device")})
@@ -335,6 +345,11 @@ def card_vs_cpu(make_env, to_numpy, from_numpy, actions, seed):
             steps.append((to_numpy(state), to_host(ts)))
         sides.append(steps)
     return sides
+
+
+def bits(x):
+    """The int32 bit patterns of a float32 tensor: -0 and +0 differ."""
+    return x.contiguous().view(__import__("torch").int32)
 
 
 def max_diff(a, b):
@@ -943,17 +958,20 @@ def subnormal_phase(dev, smi, B=4096):
       float32's subnormals, either sign), over 0.25 and 5 ns of a
       destabilizing current; and from (1e-30, 1e-30, -1) under a weakly
       stabilizing one. Every row must end at exactly the pole (by
-      magnitude), with success and the CPU port's accepted and rejected
-      step counts for the case's single state. Then ``AdaptiveLLGSSolver``
+      magnitude, read from the bits), with success and the CPU port's
+      accepted and rejected step counts for the case's single state, and
+      the first 64 rows bit for bit (int32 bits, the sign of every zero
+      included) with the CPU port on the same rows. Then ``AdaptiveLLGSSolver``
       (RK45) from the pole. The parent's path (no flush) runs the 0.25 ns
       pole case again, capped at 64 iterations, to show the fault on the
       card; the profiler counts the kernels of one chunk of 8 iterations of
       the decay case with and without the flush.
     * The array env, 4 x 4 at B in both coupling modes: rows of +z and -z
       devices with subnormal transverse parts, 20 'global' steps of +-2e6
-      A/m^2. Every device must stay at its pole exactly, and agree with the
-      CPU port within 1e-5 (pattern, observation, reward); the parent's
-      path shows the fault. Then ms and kernels per step of the main
+      A/m^2. Every device must stay at its pole exactly, its pattern bit for
+      bit with the CPU port's (int32 bits), and agree with it within 1e-5
+      (observation, reward); the path without the flush shows the
+      fault. Then ms and kernels per step of the main
       configuration (individual actions), parent's path and this one in
       turns (parent, this, this, parent), 16 steps each.
     * The racetrack (no flush: the CPU tests show none is needed): skyrmions
@@ -990,9 +1008,11 @@ def subnormal_phase(dev, smi, B=4096):
         return torch.from_numpy(np.where(rng.random(shape) < 0.5, -mag, mag).astype(np.float32))
 
     def at_pole(m):
-        """Every component exactly 0 or 1 by magnitude: the pole, flushed."""
-        mags = [x.abs() for x in m]
-        return bool(((mags[0] == 0) & (mags[1] == 0) & (mags[2] == 1)).all())
+        """Every component exactly 0 or 1 by magnitude, read from its bits
+        (sign bit masked): the pole, flushed."""
+        mags = [bits(x) & 0x7FFFFFFF for x in m]
+        one = int(bits(torch.ones(1))[0])
+        return bool(((mags[0] == 0) & (mags[1] == 0) & (mags[2] == one)).all())
 
     # ---- the adaptive methods
     p_card = params_from_dict(SUBNORMAL_DEVICE, device=dev)
@@ -1012,6 +1032,12 @@ def subnormal_phase(dev, smi, B=4096):
             card_m0 = tuple(x.to(dev) for x in m0)
             got, ms = timed(lambda: integrate_adaptive(card_m0, *args, p_card, **kw))
             steps, rejected = int(want.n_steps[0]), int(want.n_rejected[0])
+            # The first 64 rows on the CPU, bit for bit with the card's, the
+            # sign of every zero included.
+            head = integrate_adaptive(tuple(x[:64] for x in m0), torch.full((64,), span),
+                                      torch.full((64,), cur), p_cpu, **kw)
+            check(all(torch.equal(bits(a[:64].cpu()), bits(b)) for a, b in zip(got.m, head.m)),
+                  f"{method} {case}: the card's first 64 rows differ from the CPU's in bits")
             check(at_pole(want.m) and bool(want.success[0]),
                   f"{method} {case}: the CPU port left the pole: {want}")
             check(at_pole(got.m) and bool(got.success.all())
@@ -1088,6 +1114,8 @@ def subnormal_phase(dev, smi, B=4096):
         check(at_pole(p_card_.unbind(-1)) and torch.equal(p_card_[..., 2].sign(),
                                                           pattern[..., 2].sign()),
               f"array {mode}: a subnormal pole device left its pole on the card")
+        check(torch.equal(bits(p_card_), bits(p_cpu_)),
+              f"array {mode} subnormal case: the card's pattern differs from the CPU's in bits")
         pattern_diff, obs_diff = max_diff(p_card_, p_cpu_), max_diff(o_card, o_cpu)
         check(pattern_diff < 1e-5 and obs_diff < 1e-5,
               f"array {mode} subnormal case: card vs CPU pattern {pattern_diff}, obs {obs_diff}")
@@ -2406,8 +2434,8 @@ def main():
 
     def same_bits(a, want):
         m, n_sub, failed = want
-        return (all(torch.equal(x, y) for x, y in zip(a.m, m)) and torch.equal(a.n_substeps, n_sub)
-                and torch.equal(a.failed, failed))
+        return (all(torch.equal(bits(x), bits(y)) for x, y in zip(a.m, m))
+                and torch.equal(a.n_substeps, n_sub) and torch.equal(a.failed, failed))
 
     def result(r):
         return r.m, r.n_substeps, r.failed
@@ -2810,7 +2838,8 @@ def main():
             torch.cuda.synchronize()
         kernels = [e for e in p.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        check(sum(e.count for e in kernels) == calls, f"{len(kernels)} kernels in {calls} calls")
+        launched = sum(e.count for e in kernels)
+        check(launched == calls, f"{launched} launches of {len(kernels)} kernels in {calls} calls")
         return sum(e.self_device_time_total for e in kernels) / calls / 1e3
 
     k2_dev = [device_ms_per_call(lambda: ci.probe_add_one(x))]
@@ -2942,14 +2971,19 @@ def main():
     # gloo (NCCL takes one rank per device), rendezvous by file:// under
     # build/; the library is built above, so the ranks only load it. The
     # one-process 16-step block at B=4096 is the reference.
-    B, seed = 4096, 7
+    # A global batch of 4097 does not divide the two ranks: each holds and
+    # steps all of it through K1, as the JAX package runs such a batch
+    # unsharded (spintorque_tpu/ops/pallas_integrator.py:639).
+    B, seed, B_odd = 4096, 7, 4097
     actions = global_actions(B, 16, seed=8)
+    odd_actions = global_actions(B_odd, 16, seed=9)
     ref_block = env_block(SpinTorqueEnv(batch_size=B), seed, actions)
+    ref_odd = env_block(SpinTorqueEnv(batch_size=B_odd), seed, odd_actions)
     work = os.path.join(ROOT, "build")
     os.makedirs(work, exist_ok=True)
     t0 = time.perf_counter()
-    ranks = spawn_ranks(data_parallel_rank, 2, args=(B, seed, actions), backend="gloo",
-                        timeout=600.0, workdir=work)
+    ranks = spawn_ranks(data_parallel_rank, 2, args=(B, seed, actions, B_odd, odd_actions),
+                        backend="gloo", timeout=600.0, workdir=work)
     dp_wall = time.perf_counter() - t0
     for key in ("obs", "reward", "m"):
         got = torch.cat([r["block"][key] for r in sorted(ranks, key=lambda r: r["rank"])], dim=1)
@@ -2965,7 +2999,16 @@ def main():
         check(r["train_launches"] == [32, 0, 0],
               f"2 train steps launched K5/K1/K6 {r['train_launches']} times, want [32, 0, 0]")
         check(all(np.isfinite(v) for v in r["metrics"].values()), f"non-finite metrics {r}")
+        check(r["odd_rows"] == (B_odd, True),
+              f"rank layout at B={B_odd}: {r['odd_rows']}, want every row replicated")
+        check(r["odd_launches"] == [0, 16, 0],
+              f"the B={B_odd} block launched K5/K1/K6 {r['odd_launches']} times, want [0, 16, 0]")
+        for key in ("obs", "reward", "m"):
+            check(torch.equal(r["odd_block"][key].view(torch.int32),
+                              ref_odd[key].view(torch.int32)),
+                  f"rank {r['rank']}'s B={B_odd} block differs from one process in {key}")
     dp_launches = sum(r["env_launches"][0] + r["train_launches"][0] for r in ranks)
+    dp_k1_launches = sum(r["odd_launches"][1] for r in ranks)
     r0 = ranks[0]
     print(f"data-parallel, two ranks sharing one card (gloo), global B=4096: 16-step env block "
           f"bit for bit with one process (obs, reward, m); 2 PPO train steps with PPOConfig(), "
@@ -2973,10 +3016,14 @@ def main():
           f"{r0['rates'][0]:.0f} train env-steps/s on two ranks sharing one card (not a "
           f"scaling number), rollout {r0['rollout_ms'][0]:.1f} ms, update "
           f"{r0['update_ms'][0]:.1f} ms; {dp_wall:.1f} s with spawning  [{smi}]")
+    print(f"data-parallel, two ranks sharing one card, global B={B_odd} (does not divide the "
+          f"ranks): every rank holds all {B_odd} rows; 16-step env block bit for bit with one "
+          f"process on each rank (obs, reward, m as int32 bits); K1 launched 16 times per "
+          f"rank (one a step), K5 0  [{smi}]")
     RECORD["two_ranks_one_card"] = dict(
         rates=[r["rates"] for r in ranks], rollout_ms=[r["rollout_ms"] for r in ranks],
         update_ms=[r["update_ms"] for r in ranks], metrics=r0["metrics"], wall_s=dp_wall,
-        k5_launches=dp_launches)
+        k5_launches=dp_launches, odd_batch=B_odd, odd_k1_launches=dp_k1_launches)
 
     # One NCCL rank (world size 1) through the same calls, in this process.
     initialize(init_method="file://" + os.path.join(tempfile.mkdtemp(dir=work), "rendezvous"),
@@ -3150,8 +3197,9 @@ def main():
              launches=(launches["llgs_pulse"] + solver_launches + sum(shell_launches.values())
                        + sum(research_launches.values()) + sum(quantum_launches.values())
                        + example_launches["K1"] + RECORD["soak"]["k1_launches"]
-                       + script_launches["K1"]),
+                       + script_launches["K1"] + dp_k1_launches),
              launches_by_path=dict(env=launches["llgs_pulse"], solver=solver_launches,
+                                   data_parallel=dp_k1_launches,
                                    **{f"shell_{k}": v for k, v in shell_launches.items()},
                                    **research_launches, **quantum_launches,
                                    examples=example_launches["K1"],

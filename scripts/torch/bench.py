@@ -22,7 +22,9 @@ built and its probe passed (``cuda_kernel_available``; the env on the card
 launches K1 and never falls back). Under torchrun every rank steps its
 rows of the global batch on ``make_mesh()`` (the pulse is then K5), and
 the global rate over the slowest rank is divided by the world size, as
-bench.py divides by ``jax.device_count()``.
+bench.py divides by ``jax.device_count()``. A batch that does not divide
+the ranks raises, as bench.py's does
+(``spintorque_tpu/utils/benchmark.py:86``).
 
 Baseline: the reference's measured 1.802 s/step single env on CPU
 (quality_gates_report.json "Performance") = 0.555 env-steps/s.

@@ -6,9 +6,22 @@
 //
 // Each function mirrors the op order of the plain version
 // (spintorque_tpu_torch/physics/integrator.py and physics/llgs.py), so that
-// kernel and plain version agree bit for bit. Two rewrites differ in form from
-// the plain version and not in value:
+// kernel and plain version agree bit for bit. Four rewrites differ in form
+// from the plain version and not in value:
 //
+//  * The +z right-hand side multiplies by no axis component, so it drops the
+//    general form's products by the axis's +0 components. Those are zeros,
+//    and they can change only the sign of a result that is a zero; such a
+//    sign reaches the new state only through a component that is -0 (+0
+//    plus a zero is +0 whatever the zero's sign), and not from the zero row
+//    (every form falls back to +z). A block of substeps in which one began
+//    from a state where the signs matter runs again in the general form
+//    (integrate_block). tests/test_torch_rhs_signs.py compiles the
+//    substeps for the host and holds the blocks to the general form bit for
+//    bit.
+//  * The new state's subnormal flush is one multiply by 1 under
+//    flush-to-zero (flush_finite): for the finite values it gets, the
+//    plain version's compare and select of a zero of x's sign.
 //  * RK4's halving k / 2 is written kHalf * k (0.5 * k): both are the exact
 //    scaling of k, rounded once (and torch's CUDA division by a Python scalar
 //    multiplies by its reciprocal, here exact, anyway).
@@ -148,6 +161,11 @@ __device__ __forceinline__ float div6(float x) {
 }
 __device__ __forceinline__ Bf16 div6(Bf16 x) { return from_f32<Bf16>(div6(to_f32(x))); }
 
+// x * +0 for a finite x, the zero of x's sign: one bit operation.
+__device__ __forceinline__ float zero_of(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0x80000000u);
+}
+
 template <typename T>
 struct Coeffs {
   T h_k, ms, neg_gamma_eff, alpha, stt, ex, ey, ez;
@@ -222,15 +240,29 @@ __device__ __forceinline__ void normalize_with_fallback(float& x, float& y, floa
   }
 }
 
-// x, or +0 where x is a float subnormal (|x| below FLT_MIN): one compare and
-// select, as the plain version's flush_subnormal. XLA flushes subnormals on
-// the CPU and a TPU, and the JAX package's pole states with subnormal
-// transverse components stay at the pole; IEEE arithmetic would grow them.
-// An explicit select, not -ftz=true, which the plain version cannot mirror.
-// Narrower than XLA's flush: only the carried state, and to +0 (XLA keeps
-// the sign and flushes every intermediate too).
+// x, or a zero of x's sign where x is a float subnormal (|x| below FLT_MIN),
+// as XLA's flush-to-zero gives: one compare, and a select of x's sign bit, as
+// the plain version's flush_subnormal. XLA flushes subnormals on the CPU and
+// a TPU, and the JAX package's pole states with subnormal transverse
+// components stay at the pole; IEEE arithmetic would grow them. An explicit
+// select, not -ftz=true, which the plain version cannot mirror. Narrower
+// than XLA's flush: only the carried state (XLA flushes every intermediate
+// too).
 __device__ __forceinline__ float flush_subnormal(float x) {
-  return fabsf(x) < 1.17549435e-38f ? 0.0f : x;
+  return fabsf(x) < 1.17549435e-38f ? zero_of(x) : x;
+}
+
+// flush_subnormal of a finite x in one instruction: x * 1 with the
+// multiply's flush-to-zero, which gives a subnormal's zero of its sign
+// (PTX's .ftz: "flush to sign-preserving zero") and every other finite x
+// itself, exactly; nothing else in the kernel flushes (no -ftz=true). A
+// NaN would come back canonical, where flush_subnormal keeps its bits: the
+// new state, which is always finite, takes this one; the first, given by
+// the caller, flush_subnormal.
+__device__ __forceinline__ float flush_finite(float x) {
+  float y;
+  asm("mul.ftz.f32 %0, %1, 0f3F800000;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // One substep of the float state (mx, my, mz) with stage fields h (stage s
@@ -292,13 +324,67 @@ __device__ __forceinline__ bool substep(float& mx, float& my, float& mz, const T
   float ny = my + to_f32(dy);
   float nz = mz + to_f32(dz);
   normalize_with_fallback(nx, ny, nz);
-  nx = flush_subnormal(nx);
-  ny = flush_subnormal(ny);
-  nz = flush_subnormal(nz);
+  nx = flush_finite(nx);
+  ny = flush_finite(ny);
+  nz = flush_finite(nz);
   mx = nx;
   my = ny;
   mz = nz;
   return nx == 0.0f && ny == 0.0f && nz == 0.0f;
+}
+
+// Whether the sign of a zero in a substep from (x, y, z) can reach its new
+// state: a component is -0, and the state is not the zero row, from which
+// every form falls back to +z alike.
+__device__ __forceinline__ bool zero_signs_matter(float x, float y, float z) {
+  const uint32_t bx = __float_as_uint(x), by = __float_as_uint(y), bz = __float_as_uint(z);
+  const bool negative_zero = bx == 0x80000000u || by == 0x80000000u || bz == 0x80000000u;
+  return negative_zero && ((bx | by | bz) << 1) != 0u;
+}
+
+// `len` substeps of the kernel, each one's zero row ORed into `failed`.
+// start(mx, my, mz, failed) puts the block's first state and flag and
+// readies its first fields; fields(j, h) loads substep j's into h. The +z
+// right-hand side drops the general form's products by the axis's +0
+// components, zeros that can change only the sign of a result that is a
+// zero. From a state with no -0 component such a sign never reaches the new
+// state: every stage and the new state add an increment to a component of
+// the state, and a nonzero component plus a zero, or +0 plus a zero, does
+// not depend on the zero's sign; from the zero row every form falls back to
+// +z. So on +z the block runs the +z form and notes whether a substep began
+// from a state where the signs matter (zero_signs_matter: a -0 component,
+// not the zero row, which a frozen env's blow-up makes often, x / inf =
+// -0). If one did, it starts again and runs the block in the general form
+// with e = (+0, +0, 1), whose zeros carry the plain version's signs. Either
+// way the block ends in the general form's state, bit for bit. (Testing the
+// new state after each substep instead, beside its zero-row test, ran 2–3%
+// slower on an H100: PERF.md.)
+template <typename T, int METHOD, bool THERMAL, bool PLUS_Z, typename Start, typename Fields>
+__device__ __forceinline__ void integrate_block(float& mx, float& my, float& mz, bool& failed,
+                                                int len, T (&h)[12], const Coeffs<T>& c,
+                                                const T dt, const Start& start,
+                                                const Fields& fields) {
+  start(mx, my, mz, failed);
+  if constexpr (!PLUS_Z) {
+    for (int j = 0; j < len; ++j) {
+      fields(j, h);
+      failed |= substep<T, METHOD, THERMAL, false>(mx, my, mz, h, c, dt);
+    }
+  } else {
+    bool signs_matter = false;
+    for (int j = 0; j < len; ++j) {
+      fields(j, h);
+      signs_matter |= zero_signs_matter(mx, my, mz);
+      failed |= substep<T, METHOD, THERMAL, true>(mx, my, mz, h, c, dt);
+    }
+    if (signs_matter) {
+      start(mx, my, mz, failed);
+      for (int j = 0; j < len; ++j) {
+        fields(j, h);
+        failed |= substep<T, METHOD, THERMAL, false>(mx, my, mz, h, c, dt);
+      }
+    }
+  }
 }
 
 // Float4 records of one substep's thermal fields: per-stage RK4 stores the

@@ -168,6 +168,11 @@ __device__ __forceinline__ Coeffs<T> load_coeffs(const PulseArgs& a, int64_t env
     c.ex = from_f32<T>(a.ex[env]);
     c.ey = from_f32<T>(a.ey[env]);
     c.ez = from_f32<T>(a.ez[env]);
+  } else {
+    // The general form's axis, for the blocks that run it (integrate_block).
+    c.ex = from_f32<T>(0.0f);
+    c.ey = from_f32<T>(0.0f);
+    c.ez = from_f32<T>(1.0f);
   }
   return c;
 }
@@ -182,17 +187,26 @@ __device__ __forceinline__ void consume(const PulseArgs& a, bool live, int64_t e
   constexpr int C = chunk_substeps<PER_STAGE>();
   const Coeffs<T> c = load_coeffs<T, PLUS_Z>(a, env);
   const T dt = from_f32<T>(a.dt[env]);
-  float mx = flush_subnormal(a.mx0[env]);
-  float my = flush_subnormal(a.my0[env]);
-  float mz = flush_subnormal(a.mz0[env]);
-  bool failed = false;
+  // The first state, m0 flushed (integrate_block's start, or a rerun's).
+  const auto first_state = [&](float& x, float& y, float& z, bool& f) {
+    x = flush_subnormal(a.mx0[env]);
+    y = flush_subnormal(a.my0[env]);
+    z = flush_subnormal(a.mz0[env]);
+    f = false;
+  };
+  float mx, my, mz;
+  bool failed;
   T h[12];
 #pragma unroll
   for (int k = 0; k < 12; ++k) h[k] = from_f32<T>(0.0f);
 
   if constexpr (!THERMAL) {
-    for (int i = 0; i < n; ++i) failed |= substep<T, METHOD, false, PLUS_Z>(mx, my, mz, h, c, dt);
+    // One block, the whole pulse: a rerun starts again from m0.
+    const auto no_fields = [](int, T(&)[12]) {};
+    integrate_block<T, METHOD, false, PLUS_Z>(mx, my, mz, failed, n, h, c, dt, first_state,
+                                              no_fields);
   } else {
+    first_state(mx, my, mz, failed);
     const int lane = threadIdx.x & 31;
     int p = 0;  // chunk k is producer p's u-th
     int u = 0;
@@ -202,18 +216,29 @@ __device__ __forceinline__ void consume(const PulseArgs& a, bool live, int64_t e
       const float4* slot = ring + s * (C * R * 32) + lane;
       const int len = min(C, n - k * C);
       float4 rec[R];
-      if (len > 0) {
+      // The chunk's first state and substep 0's records; substep j's records
+      // with substep j + 1's read ahead (a rerun of the block reads them
+      // again from the slot, which it still holds).
+      const float x0 = mx, y0 = my, z0 = mz;
+      const bool failed0 = failed;
+      const auto start = [&](float& x, float& y, float& z, bool& f) {
+        x = x0;
+        y = y0;
+        z = z0;
+        f = failed0;
+        if (len > 0) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) rec[r] = slot[r * 32];
-      }
-      for (int j = 0; j < len; ++j) {
-        stage_fields<T, PER_STAGE>(rec, h);
+          for (int r = 0; r < R; ++r) rec[r] = slot[r * 32];
+        }
+      };
+      const auto fields = [&](int j, T(&hh)[12]) {
+        stage_fields<T, PER_STAGE>(rec, hh);
         if (j + 1 < len) {
 #pragma unroll
           for (int r = 0; r < R; ++r) rec[r] = slot[((j + 1) * R + r) * 32];
         }
-        failed |= substep<T, METHOD, true, PLUS_Z>(mx, my, mz, h, c, dt);
-      }
+      };
+      integrate_block<T, METHOD, true, PLUS_Z>(mx, my, mz, failed, len, h, c, dt, start, fields);
       mbar_arrive(&empty[s]);
       if (++p == kProducers) {
         p = 0;

@@ -16,10 +16,12 @@ the JAX package are kept:
 The per-device law is the reference's inline 10-substep Euler with a
 hardcoded alpha = 0.01 and gamma, and tau = 0.1 J m x (m x z); devices
 driven by |J| <= 1e-12 stay exactly put; the energy is J^2 A^2 R dt at the
-pre-update resistance of each affected device. Each sweep first flushes
-the pattern's float subnormals to 0 (``physics.integrator.flush_subnormal``)
-as XLA does, so a device at a pole with subnormal transverse parts stays
-there, as in the JAX package. The 'global' action mode reads the current
+pre-update resistance of each affected device. Each sweep computes from
+the pattern flushed of float subnormals (to a zero of their sign,
+``physics.integrator.flush_subnormal``) as XLA's arithmetic reads it, so a
+device at a pole with subnormal transverse parts stays there, as in the
+JAX package; a device the sweep does not move keeps its input unflushed,
+as XLA's select passes it through. The 'global' action mode reads the current
 from action[1] and always pulses 1 ns, and thermal fluctuations are
 accepted but never applied, as in the reference.
 
@@ -361,8 +363,9 @@ class SpinTorqueArrayEnv:
     def _sequential_sweep(self, pattern, mask, current, duration):
         """Device d sees devices < d already updated; one copy of the
         pattern per step, flushed of subnormals, takes every device's
-        result."""
+        result; the devices it does not move keep their unflushed input."""
         cfg = self.config
+        held = pattern
         pattern = flush_subnormal(pattern)
         energy = torch.zeros_like(current)
         for d in range(cfg.n_devices):
@@ -375,7 +378,8 @@ class SpinTorqueArrayEnv:
             e = _pulse_energy(current, duration, r, self.device_params.area)
             energy = energy + torch.where(active, e, 0.0)
             pattern[:, d, :] = m_out  # last: m_d views this row
-        return pattern, energy
+        moved = mask & (current.abs() > 1e-12)[:, None]
+        return torch.where(moved[..., None], pattern, held), energy
 
     def _simultaneous_sweep(self, pattern, mask, current, duration):
         """All affected devices advance together: each of the 10 Euler
@@ -388,6 +392,7 @@ class SpinTorqueArrayEnv:
         j = current[:, None, None]
         dt = (duration / 10.0)[:, None, None]
         act = (mask & (current.abs()[:, None] > 1e-12))[:, :, None]
+        held = pattern
         pattern = flush_subnormal(pattern)
         m = pattern
         for _ in range(10):
@@ -405,7 +410,7 @@ class SpinTorqueArrayEnv:
         r = _resistance(cfg.device_type, pattern[..., 0], pattern[..., 1], pattern[..., 2],
                         self.device_params)
         e_dev = _pulse_energy(current[:, None], duration[:, None], r, self.device_params.area)
-        return m, torch.where(mask, e_dev, 0.0).sum(-1)
+        return torch.where(act, m, held), torch.where(mask, e_dev, 0.0).sum(-1)
 
     def _similarity(self, pattern, target):
         return (pattern * target).sum(-1).mean(-1)

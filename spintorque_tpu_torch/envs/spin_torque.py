@@ -21,7 +21,11 @@ B and each rank holds its B/W rows: the pulse runs on the rank's shard (K5
 on CUDA) with the shard's global env indices in the thermal stream, and
 reset and auto-reset draw the global batch from the seed and keep the
 rank's rows. A sharded step therefore equals the one-process step bit for
-bit, thermal noise and auto-reset included.
+bit, thermal noise and auto-reset included. A B that does not divide the
+data axis is replicated, as the JAX package runs such a batch: every rank
+holds all B rows and steps them as one process does (the unsharded
+kernel, K1 on CUDA), so its step equals the one-process step on every
+rank.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from ..devices.resistance import pulse_energy as _pulse_energy
 from ..devices.resistance import resistance as _resistance
 from ..ops.cuda_integrator import cuda_kernel_available, cuda_supported, is_plus_z
 from ..ops.philox import RESET_STREAM, derive_seed, step_generator
-from ..parallel.mesh import local_batch_size, resolve_device, shard_batch
+from ..parallel.mesh import local_rows, replicates, resolve_device, split_mesh
 from ..physics.integrator import (
     IntegratorConfig,
     check_config,
@@ -149,9 +153,9 @@ class SpinTorqueEnv:
     runs its plain bf16 version on the CPU.
 
     ``mesh`` (a ``parallel.Mesh``) shards the env: ``batch_size`` is the
-    global B, which must divide the mesh's data axis, the env runs on the
-    mesh's device, and states, observations and actions hold this rank's
-    ``local_batch_size`` rows.
+    global B, the env runs on the mesh's device, and states, observations
+    and actions hold this rank's ``local_batch_size`` rows: B / W, or all B
+    where B does not divide the data axis (``replicated``).
     """
 
     def __init__(
@@ -173,7 +177,11 @@ class SpinTorqueEnv:
         self.batch_size = batch_size
         self.device = resolve_device(device, mesh)
         self.mesh = mesh
-        self.local_batch_size = batch_size if mesh is None else local_batch_size(batch_size, mesh)
+        # Whether every rank holds the whole batch (parallel.replicates).
+        self.replicated = replicates(batch_size, mesh)
+        self._split_mesh = split_mesh(batch_size, mesh)
+        self._local_rows = local_rows(batch_size, mesh)
+        self.local_batch_size = self._local_rows.stop - self._local_rows.start
         dtype = config.torch_dtype
 
         if target_states is None:
@@ -270,7 +278,7 @@ class SpinTorqueEnv:
         """This rank's rows of a global batch draw (all of it without a
         mesh): every rank draws the whole batch from the same key, as the
         one-process env does."""
-        return x if self.mesh is None else shard_batch(x, self.mesh)
+        return x if self.mesh is None else x[self._local_rows]
 
     def _sample_m(self, generator) -> Tensor:
         """Random initial magnetization: normal(0, 1, 3) normalized."""
@@ -378,7 +386,7 @@ class SpinTorqueEnv:
             config=self._integrator,
             seed=derive_seed(state.seed, state.counter),
             temperature=cfg.temperature,
-            mesh=self.mesh,
+            mesh=self._split_mesh,
         )
         mx, my, mz = res.m
         # Final renormalization...

@@ -108,7 +108,8 @@ def shard_env_offset(rank: int, local_batch: int) -> int:
 # sqrt, the folded cos/sin).
 _RHS_OPS = {True: 46, False: 64}
 _NORMALIZE_OPS = 9 + 7  # squares, sqrt, divides; finiteness compares, selects
-_FLUSH_OPS = 3 + 3  # the subnormal flush: a compare (of |x|) and a select a component
+_FLUSH_OPS = 3  # the subnormal flush: one multiply by 1 with flush-to-zero a component
+_NEGATIVE_ZERO_OPS = 3  # +z: the -0 compares of the new state, beside the zero-row test
 _PHILOX_CALL_OPS = 10 * 10 + 2 * 40
 
 
@@ -122,6 +123,8 @@ def pulse_ops_per_substep(config: IntegratorConfig, plus_z: bool) -> int:
     else:
         ops = 4 * r + 12 + 15 + 18 + 3
     ops += _NORMALIZE_OPS + _FLUSH_OPS + 4  # the failed flag's compares
+    if plus_z:
+        ops += _NEGATIVE_ZERO_OPS
     if config.thermal:
         draws = noise_draws(config)
         ops += draws * _PHILOX_CALL_OPS + (12 if draws == 3 else 3)

@@ -2,8 +2,9 @@
 
 ``distributed.initialize`` joins the process group, ``make_mesh`` lays the
 ranks out as a ('data', 'model') mesh, and each rank holds its rows of the
-env batch (``SpinTorqueEnv(mesh=...)``, ``shard_env_state``); metrics are
-reduced with ``pmean_metrics``.
+env batch (``SpinTorqueEnv(mesh=...)``, ``shard_env_state``), or all of
+it where the batch does not divide the data axis (``local_rows``); metrics
+are reduced with ``pmean_metrics``.
 """
 
 from . import distributed
@@ -14,12 +15,15 @@ from .mesh import (
     all_reduce,
     gather_batch,
     local_batch_size,
+    local_rows,
     make_mesh,
     model_all_reduce,
     pmean_metrics,
+    replicates,
     resolve_device,
     shard_batch,
     shard_env_state,
+    split_mesh,
 )
 from .rollout import Trajectory, random_policy, rollout, summarize
 
@@ -34,12 +38,15 @@ __all__ = [
     "all_reduce",
     "gather_batch",
     "local_batch_size",
+    "local_rows",
     "make_mesh",
     "model_all_reduce",
     "pmean_metrics",
+    "replicates",
     "resolve_device",
     "shard_batch",
     "shard_env_state",
+    "split_mesh",
     "Trajectory",
     "random_policy",
     "rollout",

@@ -19,6 +19,15 @@ and to sum the policy's partial products over 'model'
 package's ``env_sharding`` and ``replicated`` have no counterpart: a JAX
 array carries its sharding, a torch tensor is a rank's own rows, and what
 would be replicated is simply the same on every rank.
+
+A global batch whose size does not divide the data axis (a batch of one
+included) is replicated, as the JAX package's ``shard_env_state``
+replicates it (``spintorque_tpu/parallel/mesh.py:66``): every rank holds
+all of its rows (``local_rows``) and runs them as one process does, with
+no collective, and its pulse is the unsharded kernel
+(``integrate_pulse(mesh=split_mesh(B, mesh))``). The helpers
+whose JAX counterparts need a divisible batch, ``local_batch_size`` and
+``shard_batch``, raise as those do.
 """
 
 from __future__ import annotations
@@ -114,35 +123,75 @@ def resolve_device(device, mesh: Optional[Mesh]) -> torch.device:
     return device
 
 
+def replicates(batch: int, mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` replicates a global batch of ``batch`` rows: its size
+    does not divide the data axis (a batch of one on two or more ranks
+    included), so every rank holds all of them. False without a mesh."""
+    return mesh is not None and batch % mesh.shape["data"] != 0
+
+
+def local_rows(batch: int, mesh: Optional[Mesh]) -> slice:
+    """This rank's rows of a global batch of ``batch``: its shard
+    [r B/W, (r+1) B/W) when the batch divides the data axis, every row when
+    the mesh replicates it (``replicates``) or there is no mesh."""
+    if mesh is None or replicates(batch, mesh):
+        return slice(0, batch)
+    n = batch // mesh.shape["data"]
+    return slice(mesh.data_rank * n, (mesh.data_rank + 1) * n)
+
+
+def split_mesh(batch: int, mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh a global batch of ``batch`` rows is split over: ``mesh``, or
+    None without one or where it replicates the batch (every rank then holds
+    all of it, and its reductions are one process's)."""
+    return None if replicates(batch, mesh) else mesh
+
+
 def local_batch_size(global_batch: int, mesh: Mesh) -> int:
+    """Rows of each shard of a global batch; raises when the batch does not
+    divide the data axis, as the JAX package's does
+    (``spintorque_tpu/parallel/mesh.py:97``). ``local_rows`` gives the rows
+    of a replicated batch too."""
     n = mesh.shape["data"]
     if global_batch % n:
-        raise ValueError(f"global batch {global_batch} not divisible by data axis {n}")
+        raise ValueError(f"global batch {global_batch} not divisible by data axis {n} "
+                         "(spintorque_tpu/parallel/mesh.py:97 raises too)")
     return global_batch // n
 
 
 def shard_batch(x: Tensor, mesh: Mesh) -> Tensor:
     """This rank's rows of a global (B, ...) tensor. Raises when B does not
-    divide the data axis (the JAX package replicates such a batch)."""
-    n = local_batch_size(x.shape[0], mesh)
-    r = mesh.data_rank
-    return x[r * n:(r + 1) * n]
+    divide the data axis, as the JAX package's ``device_put`` onto the
+    batch sharding does (``spintorque_tpu/parallel/mesh.py:75``);
+    ``shard_env_state`` replicates such a tensor."""
+    B = x.shape[0]
+    n = mesh.shape["data"]
+    if B % n:
+        raise ValueError(f"global batch {B} not divisible by data axis {n} "
+                         "(spintorque_tpu/parallel/mesh.py:75 raises too)")
+    return x[local_rows(B, mesh)]
 
 
 def shard_env_state(state, mesh: Mesh):
-    """This rank's rows of a global (unsharded) EnvState: every batch-major
-    tensor, the reward statistics included; the host fields (seed,
-    counter) are kept. Equals the state that ``SpinTorqueEnv(mesh=mesh)``
-    returns from ``reset`` with the same seed."""
-    def rows(x):
-        return shard_batch(x, mesh) if isinstance(x, Tensor) and x.ndim >= 1 else x
+    """This rank's rows of a global (unsharded) EnvState, or of any nest of
+    tensors in dataclasses and dicts: every tensor of one or more
+    dimensions gives its ``local_rows``, so a leading dimension that
+    does not divide the data axis (or is 1) is replicated, as the JAX
+    package places it (``spintorque_tpu/parallel/mesh.py:58-70``); 0-dim
+    tensors and host fields (seed, counter) are kept. Equals the state that
+    ``SpinTorqueEnv(mesh=mesh)`` returns from ``reset`` with the same
+    seed."""
+    def place(x):
+        if isinstance(x, Tensor):
+            return x[local_rows(x.shape[0], mesh)] if x.ndim >= 1 else x
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return dataclasses.replace(x, **{f.name: place(getattr(x, f.name))
+                                             for f in dataclasses.fields(x) if f.init})
+        if isinstance(x, dict):
+            return {k: place(v) for k, v in x.items()}
+        return x
 
-    stats = {name: dataclasses.replace(st, **{f.name: rows(getattr(st, f.name))
-                                              for f in dataclasses.fields(st)})
-             for name, st in state.reward_stats.items()}
-    fields = {f.name: rows(getattr(state, f.name)) for f in dataclasses.fields(state)
-              if f.name != "reward_stats"}
-    return dataclasses.replace(state, **fields, reward_stats=stats)
+    return place(state)
 
 
 def all_reduce(x: Tensor, mesh: Optional[Mesh], op=None) -> Tensor:

@@ -13,7 +13,7 @@ from typing import TYPE_CHECKING, Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from .mesh import all_reduce
+from .mesh import all_reduce, split_mesh
 
 if TYPE_CHECKING:  # envs imports parallel.mesh
     from ..envs.spin_torque import EnvState, SpinTorqueEnv
@@ -79,11 +79,14 @@ def rollout(
     return state, obs, traj
 
 
-def summarize(traj: Trajectory, mesh=None) -> Dict[str, Any]:
+def summarize(traj: Trajectory, env: SpinTorqueEnv | None = None) -> Dict[str, Any]:
     """Scalar rollout metrics: ``steps`` a host int, the rest 0-dim device
-    tensors. With a ``parallel.Mesh`` (``traj`` holds this rank's rows) they
-    are global: one ``all_reduce(SUM)`` of the counts and sums, the same on
-    every rank."""
+    tensors. ``env`` is the env ``traj`` was collected from: where its mesh
+    splits the batch (``traj`` holds this rank's rows) they are global, one
+    ``all_reduce(SUM)`` of the counts and sums, the same on every rank;
+    where the mesh replicates it (``split_mesh``) every rank holds the whole
+    batch and reduces nothing."""
+    mesh = None if env is None else split_mesh(env.batch_size, env.mesh)
     done = traj.terminated | traj.truncated
     sums = all_reduce(torch.stack([
         x.sum().to(torch.float64) for x in (

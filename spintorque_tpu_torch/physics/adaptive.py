@@ -21,13 +21,12 @@ at entry and restored at exit, so the Radau path's batched 9x9 Newton
 solve takes scalar or N-d inputs too (the JAX package's assumes a 1-D
 batch).
 
-Subnormals. XLA flushes float subnormals to zero; torch keeps them. The
-carried state is flushed (``integrator.flush_subnormal``) on entry and,
-for RK45 and the midpoint, after every accepted update, so a pole state
-with subnormal transverse parts stays at its pole and a state decaying
-through the subnormal range reaches it exactly, as in the JAX package
-(``tests/test_torch_subnormal_parity.py``). Radau reaches JAX's results
-on those cases with the entry flush alone.
+Subnormals. XLA flushes float subnormals to zeros of their sign; torch
+keeps them. The carried state is flushed (``integrator.flush_subnormal``)
+on entry and after every accepted update, so a pole state with subnormal
+transverse parts stays at its pole and a state decaying through the
+subnormal range reaches it exactly, sign bits included, as in the JAX
+package (``tests/test_torch_subnormal_parity.py``).
 
 Jacobians are exact: the chain rule of the renormalized RHS written out
 as batched 3x3 matrices (``_rhs_and_jacobian``), where the JAX package
@@ -569,7 +568,7 @@ def _radau5_body(c: _RHS, span, settings):
         accept, new_dt = _controller(ratio, dt, dt_min, dt_max, 0.25, 8.0)
 
         do = active & accept
-        y_norm = torch.stack(normalize_with_fallback(*y_new.unbind(-1)), dim=-1)
+        y_norm = flush_subnormal(torch.stack(normalize_with_fallback(*y_new.unbind(-1)), dim=-1))
         y = torch.where(do[:, None], y_norm, y)
         t = torch.where(do, t + h, t)
         nacc = nacc + do.to(torch.int32)

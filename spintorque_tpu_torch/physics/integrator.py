@@ -203,22 +203,27 @@ def _increment(m, dt, c, method: str, stage):
 
 def flush_subnormal(x: Tensor) -> Tensor:
     """``x`` with every subnormal element (magnitude below the smallest
-    normal of its dtype) replaced by +0: one compare and select, the same in
-    the kernel (``csrc/llgs_substep.cuh``). XLA flushes subnormals to zero
-    on the CPU and on a TPU, so the JAX package's pulse holds a pole state
-    with subnormal transverse components at the pole, a fixed point, where
-    IEEE arithmetic would let a destabilizing current grow them by ~e^58
-    over a few hundred substeps.
+    normal of its dtype) replaced by a zero of its sign, as XLA's
+    flush-to-zero gives: a compare, a product by 0 and a select. The kernel
+    (``csrc/llgs_substep.cuh``) flushes its first state the same way, the
+    zero a bit operation, and each new state, always finite, with one
+    multiply by 1 under the hardware's flush-to-zero, which gives the same
+    bits. XLA flushes subnormals on the CPU and on a
+    TPU, so the JAX package's pulse holds a pole state with subnormal
+    transverse components at the pole, a fixed point, where IEEE arithmetic
+    would let a destabilizing current grow them by ~e^58 over a few hundred
+    substeps.
 
     This flush is narrower than XLA's: it touches only the carried state
     (XLA's also flushes every intermediate, the stage states and the
-    right-hand side's products), and it gives +0 where XLA keeps the sign
-    (-0). The adaptive integrators (``physics/adaptive.py``) and the array
-    env's sweeps (``envs/array.py``) flush their carried states with it too.
-    Parity with JAX is shown for pole states and states decaying through
-    the subnormal range (``tests/test_torch_research_tier.py``,
+    right-hand side's products). The adaptive integrators
+    (``physics/adaptive.py``) and the array env's sweeps (``envs/array.py``)
+    flush their carried states with it too. Parity with JAX, the sign bit
+    of every component included, is shown for pole states and states
+    decaying through the subnormal range (``tests/test_torch_research_tier.py``,
     ``tests/test_torch_subnormal_parity.py``), not in general."""
-    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, 0.0, x)
+    # x * 0 is the zero of x's sign wherever it is selected (finite x).
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, x * 0.0, x)
 
 
 def _substep(m, dt, c, method: str, stage, stage_dtype):
@@ -377,7 +382,11 @@ def integrate_pulse(
         mesh: the ``parallel.Mesh`` whose 'data' shard this batch is (B is
             then the rank's local batch); its thermal draws are keyed from
             the shard's first global row,
-            ``ops.cuda_integrator.shard_env_offset``.
+            ``ops.cuda_integrator.shard_env_offset``. A batch that the mesh
+            replicates runs with ``parallel.split_mesh(B, mesh)``, which is
+            None: unsharded on every rank, as the JAX package's
+            ``integrate_pulse_pallas`` falls back
+            (``spintorque_tpu/ops/pallas_integrator.py:639-646``).
 
     CUDA tensors run the hand-written kernel (K5, the sharded launch, on a
     mesh; K1 or K6 otherwise) and CPU tensors its plain version; any other

@@ -197,7 +197,7 @@ def compare_policies(
         state, obs, traj = rollout(env, policy, None, state, obs, generator, horizon)
         ep_returns = traj.info["episode_return"][-1].cpu().numpy()
         returns[name] = ep_returns
-        stats = {k: float(v) for k, v in summarize(traj, env.mesh).items()}
+        stats = {k: float(v) for k, v in summarize(traj, env).items()}
         stats["mean_return"] = float(ep_returns.mean())
         out["policies"][name] = stats
     names = list(policies)

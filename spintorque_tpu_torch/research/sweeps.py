@@ -7,7 +7,12 @@ kernel on a CUDA device, its plain version on the CPU; the JAX package's
 ``use_pallas`` has no counterpart). With a mesh each rank integrates its
 rows of the batch (K5 on CUDA), with their global env indices in the
 thermal stream, and the per-point counts meet in one ``all_reduce(SUM)``:
-a sharded sweep equals the unsharded one bit for bit.
+a sharded sweep equals the unsharded one bit for bit. A batch that does
+not divide the data axis is replicated, as the JAX sweep leaves it
+unsharded for ``integrate_pulse_pallas`` to run (its ``_maybe_shard``,
+``spintorque_tpu/research/sweeps.py:51-63``): every rank integrates all of
+it unsharded (K1 on CUDA) and reduces nothing, so the result is the
+unsharded sweep's on every rank.
 
 The JAX package's ``key`` becomes ``seed``, the 64-bit key of the Philox
 thermal stream.
@@ -21,7 +26,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..parallel.mesh import all_reduce, gather_batch, local_batch_size, resolve_device
+from ..parallel.mesh import all_reduce, gather_batch, local_rows, resolve_device, split_mesh
 from ..physics.integrator import IntegratorConfig, integrate_pulse, max_substeps_for
 from ..physics.llgs import LLGSParams
 
@@ -47,14 +52,6 @@ def _tilted_m0(B, dtype, device, sign=-1.0):
         torch.zeros((B,), dtype=dtype, device=device),
         torch.full((B,), mz0, dtype=dtype, device=device),
     ), mz0
-
-
-def _rows(mesh, B: int) -> slice:
-    """This rank's rows of a global batch of B (all of them without a mesh)."""
-    if mesh is None:
-        return slice(0, B)
-    n = local_batch_size(B, mesh)
-    return slice(mesh.data_rank * n, (mesh.data_rank + 1) * n)
 
 
 def _param_rows(params: LLGSParams, rows: slice, B: int) -> LLGSParams:
@@ -106,8 +103,9 @@ def switching_probability_diagram(
     0.5 degree tilt so deterministic torque is nonzero at the pole) and
     reports the fraction of the ensemble that ends with sign(m_z) flipped.
     One ``integrate_pulse`` call covers the whole grid x ensemble, or this
-    rank's rows of it on a mesh. Runs on ``device``: "cuda" unless the
-    caller asks for "cpu", or the mesh's.
+    rank's rows of it on a mesh (all of them where the batch does not divide
+    the data axis). Runs on ``device``: "cuda" unless the caller asks for
+    "cpu", or the mesh's.
 
     Returns {"currents", "durations", "p_switch" (nJ, nT),
     "failed_fraction" (nJ, nT), "final_mz" (B,)}, the same on every rank.
@@ -127,22 +125,22 @@ def switching_probability_diagram(
         noise_mode=noise_mode,
         rk4_noise="per_substep",
     )
-    rows = _rows(mesh, B)
+    rows, split = local_rows(B, mesh), split_mesh(B, mesh)
     m0, mz0 = _tilted_m0(rows.stop - rows.start, dtype, device, sign=initial_mz)
     res = integrate_pulse(m0, span=t_flat[rows], current=j_flat[rows],
                           params=params.to(device, dtype), config=config, seed=seed,
-                          temperature=temperature, mesh=mesh)
+                          temperature=temperature, mesh=split)
     mz = res.m[2]
     # Strict sign flip: mz ending exactly at 0.0 has not crossed into the
     # opposite well, so it must not count.
     switched = (mz * mz0 < 0.0) & ~res.failed
-    p, failed_fraction = _ensemble_stats(switched, res.failed, n_j * n_t, n_ensemble, rows, mesh)
+    p, failed_fraction = _ensemble_stats(switched, res.failed, n_j * n_t, n_ensemble, rows, split)
     return {
         "currents": currents,
         "durations": durations,
         "p_switch": p.reshape(n_j, n_t),
         "failed_fraction": failed_fraction.reshape(n_j, n_t),
-        "final_mz": gather_batch(mz, mesh),
+        "final_mz": gather_batch(mz, split),
     }
 
 
@@ -188,15 +186,15 @@ def parameter_ladder_sweep(
         noise_mode=noise_mode,
         rk4_noise="per_substep",
     )
-    rows = _rows(mesh, B)
+    rows, split = local_rows(B, mesh), split_mesh(B, mesh)
     n = rows.stop - rows.start
     m0, _ = _tilted_m0(n, dtype, device, sign=-1.0)
     res = integrate_pulse(m0, span=torch.full((n,), duration, dtype=dtype, device=device),
                           current=torch.full((n,), current, dtype=dtype, device=device),
                           params=_param_rows(params, rows, B), config=config, seed=seed,
-                          temperature=temperature, mesh=mesh)
+                          temperature=temperature, mesh=split)
     switched = (res.m[2] > 0) & ~res.failed
-    p, failed_fraction = _ensemble_stats(switched, res.failed, n_points, n_ensemble, rows, mesh)
+    p, failed_fraction = _ensemble_stats(switched, res.failed, n_points, n_ensemble, rows, split)
     out = {"p_switch": p, "failed_fraction": failed_fraction}
     out.update({n: lad for n, lad in zip(names, ladders)})
     return out

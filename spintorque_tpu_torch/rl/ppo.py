@@ -113,6 +113,12 @@ class PPOTrainer:
                 "PPOTrainer(mesh=...) takes an env built on the same mesh "
                 "(SpinTorqueEnv(mesh=...)), which holds this rank's rows"
             )
+        if env.replicated:
+            raise ValueError(
+                f"PPOTrainer on a mesh needs a global batch that divides the data axis, not "
+                f"{env.batch_size} over {mesh.shape['data']}: the JAX trainer's device_put of "
+                "the observations onto the batch sharding raises too "
+                "(spintorque_tpu/rl/ppo.py:120)")
         self.env = env
         self.config = config
         self.mesh = mesh

@@ -11,7 +11,9 @@ phases.
 
 On a mesh (an env built with ``mesh=``) every rank runs the same program on
 its rows; the ranks start each timed block together, and a rate is the
-global env-steps over the slowest rank's time (``all_reduce(MAX)``).
+global env-steps over the slowest rank's time (``all_reduce(MAX)``). An
+env whose batch the mesh replicates raises, as the JAX program's
+``shard_batch`` does (``spintorque_tpu/utils/benchmark.py:86``).
 
 ``PEAK_FLOPS``, ``PEAK_FP32_INSTR``, ``PEAK_BF16_INSTR`` and
 ``PEAK_BYTES`` are the card's peaks that bounds and utilizations are priced
@@ -96,6 +98,11 @@ def measure_env_throughput(
     """
     from ..parallel import random_policy
 
+    if getattr(env, "replicated", False):
+        raise ValueError(
+            f"measure_env_throughput on a mesh needs a global batch that divides the data "
+            f"axis, not {env.batch_size} over {env.mesh.shape['data']}: the JAX program's "
+            "shard_batch of the observations raises too (spintorque_tpu/utils/benchmark.py:86)")
     cuda = env.device.type == "cuda"
     if sync_debug_mode is not None and not cuda:
         raise ValueError("sync_debug_mode needs an env on a CUDA device")

@@ -5,7 +5,9 @@ process per card, with the cost of the trainer's collectives.
 
 Every rank joins the process group, N = 1 included (one NCCL rank then runs
 the same collectives as N ranks do), holds 4096 envs of the default config
-(the global batch grows with the world size) and runs the two measurement
+(the global batch grows with the world size, so it always divides the
+ranks: ``utils.benchmark`` and the trainer raise on one that does not, as
+the JAX package's do) and runs the two measurement
 programs of ``utils.benchmark`` on its rows: env-steps/s over 16-step
 programs, then PPO train steps with the default ``PPOConfig``. A rate is
 the global env-steps over the slowest rank's time. Beside the mesh trainer,

@@ -1,7 +1,8 @@
 """The CUDA pulse kernels (K1 in float32, K6 with bf16 stage arithmetic,
 K5 on a shard) against their plain versions, the PPO trainer, the
-quantum tier's integer products, devices and matmul precision, and the
-adaptive loop's subnormal pole states, on the card.
+quantum tier's integer products, devices and matmul precision, the
+adaptive loop's subnormal pole states and the sign of flushed subnormals,
+on the card.
 
 Every test here carries the ``cuda`` marker and skips where torch sees no
 CUDA device. This file imports no JAX, so it also runs where the JAX
@@ -15,6 +16,7 @@ plain version op for op, so they usually agree to the bit). K6 rounds every
 stage op to bf16 as a torch bf16 op does, and is held to the same bounds.
 """
 
+import itertools
 import types
 
 import pytest
@@ -239,6 +241,66 @@ def test_kernel_flushes_subnormal_pole_states_as_the_plain_loop(cuda, method):
     assert torch.equal(got.failed, want.failed)
     assert (got.m[0][:128] == 0).all() and (got.m[1][:128] == 0).all()
     assert torch.equal(got.m[2][:128], mz[:128])
+
+
+def _bits(x):
+    """The int32 bit patterns of a float32 tensor: -0 and +0 differ."""
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("method", ["euler", "heun", "rk4"])
+@pytest.mark.parametrize("kernel", ["k1", "k5", "k6"])
+def test_kernels_keep_the_sign_of_flushed_subnormals(cuda, kernel, method):
+    """States that reach +-subnormal: every sign of (+-1e-40, +-1e-40, +-1),
+    flushed on entry, and of (+-3e-38, +-3e-38, +-1), decaying through the
+    subnormal range under 2e-12 A/m^2 over 1 ns. K1, K5 (rank 1 of 2) and K6
+    flush to a zero of the subnormal's sign, as XLA and the plain version
+    do, and hold the plain version bit for bit, compared as int32 bits so
+    that -0 differs from +0; some components end at -0."""
+    signs = torch.tensor(list(itertools.product((1.0, -1.0), repeat=3)))
+    m = torch.cat([signs * torch.tensor([mag, mag, 1.0]) for mag in (1e-40, 3e-38)])
+    m = m.float().repeat(16, 1).to(cuda)  # 256 rows
+    B = m.shape[0]
+    m0 = tuple(m[:, k].contiguous() for k in range(3))
+    spans = torch.full((B,), 1e-9, device=cuda)
+    cur = torch.full((B,), 2e-12, device=cuda)
+    p = _params(cuda, volume=1e-24, uniaxial_anisotropy=8e5)
+    cfg = IntegratorConfig(method=method, max_substeps=1000, bf16_rhs=kernel == "k6")
+    counter = {"k1": ci.PULSE_LAUNCHES, "k5": ci.PULSE_SHARDED_LAUNCHES,
+               "k6": ci.PULSE_BF16_LAUNCHES}[kernel]
+    before = counter.count
+    mesh = types.SimpleNamespace(data_rank=1) if kernel == "k5" else None
+    got = integrate_pulse(m0, spans, cur, p, cfg, mesh=mesh)
+    want = integrate_pulse_plain(m0, spans, cur, p, cfg, env_offset=B if mesh else 0)
+    assert counter.count - before == 1
+    for a, b in zip(got.m, want.m):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(got.n_substeps, want.n_substeps)
+    assert torch.equal(got.failed, want.failed)
+    xy = torch.stack(got.m[:2])
+    assert ((xy == 0) & torch.signbit(xy)).any()
+
+
+def test_indivisible_mesh_batch_launches_k1(cuda):
+    """A global batch that does not divide the mesh's data axis runs
+    unsharded, as the JAX package's ``integrate_pulse_pallas`` falls back:
+    one K1 launch at env offset 0, no K5, bit for bit with the launch
+    without a mesh, thermal draws included."""
+    from spintorque_tpu_torch.parallel import Mesh, split_mesh
+
+    B = 4097
+    m0, spans, cur = _setup(B, cuda, seed=11)
+    p = _params(cuda)
+    cfg = IntegratorConfig(method="rk4", max_substeps=256, thermal=True,
+                           rk4_noise="per_substep")
+    mesh = Mesh({"data": 2, "model": 1}, cuda)
+    k1, k5 = ci.PULSE_LAUNCHES.count, ci.PULSE_SHARDED_LAUNCHES.count
+    got = integrate_pulse(m0, spans, cur, p, cfg, seed=3, mesh=split_mesh(B, mesh))
+    assert (ci.PULSE_LAUNCHES.count - k1, ci.PULSE_SHARDED_LAUNCHES.count - k5) == (1, 0)
+    want = integrate_pulse(m0, spans, cur, p, cfg, seed=3)
+    for a, b in zip(got.m, want.m):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(got.n_substeps, want.n_substeps)
 
 
 def test_surface_code_logical_failure_on_the_card(cuda):

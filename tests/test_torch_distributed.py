@@ -78,13 +78,15 @@ def _mesh_rank():
     mesh = make_mesh(device="cpu")
     out["local_64"] = local_batch_size(64, mesh)
     for name, call in (("bad_mesh", lambda: make_mesh(n_data=3, device="cpu")),
-                       ("bad_batch", lambda: local_batch_size(63, mesh)),
-                       ("bad_env", lambda: _env(63, mesh))):
+                       ("bad_batch", lambda: local_batch_size(63, mesh))):
         try:
             call()
             out[name] = None
         except ValueError as e:
             out[name] = str(e)
+    # A batch that does not divide the data axis is replicated, as JAX's is.
+    odd = _env(63, mesh)
+    out["odd_env"] = (odd.local_batch_size, odd.replicated)
     tp = make_mesh(n_data=1, n_model=2, device="cpu")
     out["tp_ranks"] = (tp.data_rank, tp.model_rank)
     network = PPOTrainer(_env(16, tp), PPOConfig(hidden_sizes=(8,))).init(0).network
@@ -156,7 +158,7 @@ def _train_rank():
     dist.broadcast(root1, src=0)
     state, obs, traj = rollout(env, random_policy(env), None, ts.env_state, ts.obs,
                                torch.Generator().manual_seed(1 + mesh.data_rank), 3)
-    stats = summarize(traj, mesh)
+    stats = summarize(traj, env)
     timing = measure_train_throughput(trainer, warmup=0, steps=1)
     rates, steps = measure_env_throughput(env, n_inner=2, warmup=1, blocks=1, iters_per_block=1)
     return dict(
@@ -203,7 +205,8 @@ def test_mesh_shapes_and_errors():
         assert o["model"] == {"data": 1, "model": 2}
         assert o["local_64"] == 32
         assert "3x1" in o["bad_mesh"]
-        assert "not divisible" in o["bad_batch"] and "not divisible" in o["bad_env"]
+        assert "not divisible" in o["bad_batch"]
+        assert o["odd_env"] == (63, True)
         assert o["tp"] == (4, 12)  # the trainer holds its half of the hidden layer
     assert [o["tp_ranks"] for o in out] == [(0, 0), (0, 1)]
 

@@ -156,6 +156,7 @@ def test_bf16_ops_are_the_stage_ops(method, plus_z):
     assert ci.pulse_bf16_ops_per_substep(f32, plus_z) == 0
     assert ci.pulse_ops_per_substep(bf16, plus_z) == ci.pulse_ops_per_substep(f32, plus_z)
     float_ops = ci._NORMALIZE_OPS + ci._FLUSH_OPS + 4 + 3 + (3 if method == "rk4" else 0)
+    float_ops += ci._NEGATIVE_ZERO_OPS if plus_z else 0
     assert ci.pulse_bf16_ops_per_substep(bf16, plus_z) == (
         ci.pulse_ops_per_substep(bf16, plus_z) - float_ops)
     for thermal in (False, True):

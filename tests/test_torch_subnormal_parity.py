@@ -1,25 +1,30 @@
 """The port's plain-torch state loops against the JAX package's where XLA's
 flush of float subnormals decides the outcome.
 
-XLA on the CPU (as on a TPU) flushes subnormal floats to zero, inputs and
-results alike; IEEE arithmetic, which torch follows, keeps them. A state at
+XLA on the CPU (as on a TPU) flushes subnormal floats to zeros of their
+sign, inputs and results alike; IEEE arithmetic, which torch follows,
+keeps them. A state at
 a pole whose transverse components are subnormal is a fixed point to XLA,
 while an unstable integration grows the kept components until the state
 leaves its pole. The port flushes the carried state
 (``physics.integrator.flush_subnormal``) where that decides the result:
 
-  * ``integrate_adaptive`` (RK45, midpoint, Radau) on entry, and RK45 and
-    the midpoint after every accepted update. From the -z pole with
+  * The pulse's plain loop and trajectory on entry and after every
+    substep: from every sign of subnormal or decaying transverse parts at
+    both poles, each component's sign bit is JAX's.
+  * ``integrate_adaptive`` (RK45, midpoint, Radau) on entry and after
+    every accepted update. From the -z pole with
     (1e-38, 1e-38) transverse parts under a destabilizing current, each
     method ends at the pole with JAX's accepted and rejected step counts;
     under a weakly stabilizing current a state of 1e-30 decays through the
     subnormal range to exactly the pole, as in JAX. m is held bit for bit
-    by magnitude: the port flushes to +0 where XLA may keep -0.
+    by magnitude, and by sign bit in the signed-zero cases.
   * ``AdaptiveLLGSSolver.solve``, RK45 by default, as the JAX facade.
-  * The array env's two sweeps on entry: a pattern of +-z devices with
-    subnormal transverse parts stays put for 24 steps of +-2e6 A/m^2, in
-    both coupling modes, as in JAX. The pattern is held bit for bit by
-    magnitude; obs, reward and info at rtol 1e-5, the float32 tolerance of
+  * The array env's two sweeps compute from the flushed pattern, and the
+    devices they do not move keep their input: a pattern of +-z devices
+    with subnormal transverse parts stays put for 24 steps of +-2e6 A/m^2,
+    in both coupling modes, as in JAX. The pattern is held bit for bit by
+    magnitude, and by sign bit with undriven arrays among them; obs, reward and info at rtol 1e-5, the float32 tolerance of
     ``tests/test_torch_array_env.py``.
   * The racetrack needs no flush: from subnormal velocities, with the
     skyrmions so far off the centerline that every pinning well's
@@ -33,6 +38,7 @@ jitted on the CPU.
 """
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -45,7 +51,9 @@ from spintorque_tpu.envs.array import SpinTorqueArrayEnv as JArrayEnv
 from spintorque_tpu.envs.skyrmion import SkyrmionEnvConfig as JSkyrmionConfig
 from spintorque_tpu.envs.skyrmion import SkyrmionRacetrackEnv as JSkyrmionEnv
 from spintorque_tpu.physics import AdaptiveLLGSSolver as JAdaptiveLLGSSolver
+from spintorque_tpu.physics import IntegratorConfig as JIntegratorConfig
 from spintorque_tpu.physics import integrate_adaptive as jax_integrate_adaptive
+from spintorque_tpu.physics import integrate_pulse as jax_integrate_pulse
 from spintorque_tpu.physics.solver import params_from_dict as jax_params_from_dict
 from spintorque_tpu_torch import convert
 from spintorque_tpu_torch.envs import (
@@ -54,7 +62,13 @@ from spintorque_tpu_torch.envs import (
     SkyrmionRacetrackEnv,
     SpinTorqueArrayEnv,
 )
-from spintorque_tpu_torch.physics import AdaptiveLLGSSolver, integrate_adaptive
+from spintorque_tpu_torch.physics import (
+    AdaptiveLLGSSolver,
+    IntegratorConfig,
+    integrate_adaptive,
+    integrate_pulse_plain,
+    integrate_pulse_trajectory,
+)
 from spintorque_tpu_torch.physics.solver import params_from_dict
 
 torch.set_num_threads(1)
@@ -133,6 +147,127 @@ def test_adaptive_solver_facade_holds_the_pole():
     assert int(got["n_rejected"]) == int(want["n_rejected"])
 
 
+# ---------------------------------------------------------- signed zeros
+# XLA's flush keeps the sign: a negative subnormal becomes -0, and the
+# arithmetic on signed zeros that follows is IEEE's in both packages. Each
+# case holds the port's sign bit per component to JAX's, with the
+# magnitudes bit for bit.
+
+
+def _signed_rows(mag):
+    """(3, 8) float32 columns: (+-mag, +-mag, +-1) in every sign."""
+    signs = np.array(list(itertools.product((1.0, -1.0), repeat=3)), np.float32).T
+    return signs * np.array([[mag], [mag], [1.0]], np.float32)
+
+
+def _same_signs(got, want, name):
+    got, want = np.asarray(got), np.asarray(want)
+    _same_magnitudes(got, want, name)
+    np.testing.assert_array_equal(np.signbit(got), np.signbit(want), err_msg=f"{name}: sign")
+
+
+# (start, |m_xy| at the start, span, current): "subnormal" starts flushed
+# under the destabilizing current, every method a fixed point at its pole;
+# "decay" starts normal under a weakly stabilizing current and decays
+# through the subnormal range within the span.
+PULSE_SIGN_CASES = {
+    "subnormal": (1e-40, 2.5e-10, DESTABILIZING),
+    "decay": (3e-38, 1e-9, 2e-12),
+}
+
+
+@pytest.mark.parametrize("method, start", [
+    ("euler", "subnormal"), ("heun", "subnormal"), ("rk4", "subnormal"),
+    ("euler", "decay"), ("heun", "decay"),
+])
+def test_pulse_signed_zeros_match_jax(method, start):
+    """The plain loop and the trajectory from every sign of the transverse
+    parts at both poles, against the jitted JAX pulse. JAX ends with -0 in
+    3 of the 16 transverse components, which a flush to +0 loses.
+    RK4 has no decay case: JAX's RK4 stage increments (0.35 |m_xy| a
+    substep) underflow to 0 first, so its state stops at ~3e-38 and never
+    enters the subnormal range, where the port's decays to the pole (the
+    narrower flush, ROADMAP's recorded differences)."""
+    mag, span, current = PULSE_SIGN_CASES[start]
+    m = _signed_rows(mag)
+    n = m.shape[1]
+    span, current = np.full(n, span, np.float32), np.full(n, current, np.float32)
+    kw = dict(method=method, max_substeps=1000)
+    want = jax.jit(lambda: jax_integrate_pulse(
+        tuple(jnp.asarray(x) for x in m), jnp.asarray(span), jnp.asarray(current),
+        jax_params_from_dict(DEVICE), JIntegratorConfig(**kw)))()
+    args = (tuple(torch.from_numpy(x) for x in m), torch.from_numpy(span),
+            torch.from_numpy(current), params_from_dict(DEVICE, device="cpu"),
+            IntegratorConfig(**kw))
+    got = integrate_pulse_plain(*args)
+    traj_result, traj = integrate_pulse_trajectory(*args)
+    want_m = np.stack([np.asarray(x) for x in want.m])
+    assert np.all(want_m[:2] == 0.0) and np.any(np.signbit(want_m[:2]))
+    _same_signs(np.stack([x.numpy() for x in got.m]), want_m, "plain loop")
+    _same_signs(np.stack([x.numpy() for x in traj_result.m]), want_m, "trajectory result")
+    _same_signs(traj[-1].numpy(), want_m, "trajectory's last row")
+    np.testing.assert_array_equal(got.n_substeps.numpy(), np.asarray(want.n_substeps))
+
+
+def test_rk4_pulse_decays_what_jax_holds_just_above_the_subnormal_range():
+    """The measured difference of the narrower flush. From transverse parts
+    of +-3e-38 (normal, 2.6x the smallest normal) under 2e-12 A/m^2 for 1
+    ns, jitted JAX's RK4 pulse keeps every one of them: its stage
+    increments, ~0.35 |m_xy| a substep, are subnormal and flushed, so the
+    state stops. The port flushes only the carried state, and its RK4
+    decays them to exactly 0 (to zeros of either sign). JAX gives no one
+    answer in this range: op by op its Heun pulse keeps them too over 250
+    substeps, where jitted (``test_pulse_signed_zeros_match_jax``'s decay
+    case) its fused multiply-adds decay them to 0 as the port does."""
+    m = _signed_rows(3e-38)
+    n = m.shape[1]
+
+    def jax_pulse(method, span):
+        return lambda: jax_integrate_pulse(
+            tuple(jnp.asarray(x) for x in m), jnp.asarray(np.full(n, span, np.float32)),
+            jnp.asarray(np.full(n, 2e-12, np.float32)), jax_params_from_dict(DEVICE),
+            JIntegratorConfig(method=method, max_substeps=1000))
+
+    want = jax.jit(jax_pulse("rk4", 1e-9))()
+    got = integrate_pulse_plain(
+        tuple(torch.from_numpy(x) for x in m), torch.full((n,), 1e-9), torch.full((n,), 2e-12),
+        params_from_dict(DEVICE, device="cpu"), IntegratorConfig(method="rk4", max_substeps=1000))
+    np.testing.assert_array_equal(np.stack([np.asarray(x) for x in want.m])[:2], m[:2])
+    assert all(bool((x == 0).all()) for x in got.m[:2])
+    with jax.disable_jit():
+        heun = jax_pulse("heun", 2.5e-10)()
+    np.testing.assert_array_equal(np.stack([np.asarray(x) for x in heun.m])[:2], m[:2])
+
+
+@pytest.mark.parametrize("start", ["subnormal", "decay"])
+@pytest.mark.parametrize("method", METHODS)
+def test_adaptive_signed_zeros_match_jax(method, start):
+    """``integrate_adaptive`` from every sign of the transverse parts at both
+    poles: subnormal starts under the current that destabilizes each pole,
+    and starts of 1e-30 decaying under 2e-12 A/m^2 toward each pole, as
+    ``test_adaptive_decay_through_subnormals_matches_jax``. JAX ends every
+    transverse component at +0 (each step adds to a sum that starts at +0).
+    Radau with a flush on entry alone leaves +-1.4e-45 in two decaying
+    rows."""
+    mag, current = {"subnormal": (1e-40, DESTABILIZING), "decay": (1e-30, 2e-12)}[start]
+    m = _signed_rows(mag)
+    n = m.shape[1]
+    span = np.full(n, 2.5e-10, np.float32)
+    current = (-m[2] * current).astype(np.float32)  # -2.7e-7 at -z, +2.7e-7 at +z
+    kw = dict(max_steps=4000, method=method)
+    want = jax.jit(lambda: jax_integrate_adaptive(
+        tuple(jnp.asarray(x) for x in m), jnp.asarray(span), jnp.asarray(current),
+        jax_params_from_dict(DEVICE), **kw))()
+    got = integrate_adaptive(tuple(torch.from_numpy(x) for x in m), torch.from_numpy(span),
+                             torch.from_numpy(current), params_from_dict(DEVICE, device="cpu"),
+                             **kw)
+    want_m = np.stack([np.asarray(x) for x in want.m])
+    assert np.all(want_m[:2] == 0.0)
+    _same_signs(np.stack([x.numpy() for x in got.m]), want_m, "m")
+    np.testing.assert_array_equal(got.n_steps.numpy(), np.asarray(want.n_steps))
+    np.testing.assert_array_equal(got.n_rejected.numpy(), np.asarray(want.n_rejected))
+
+
 # ---------------------------------------------------------------- the envs
 
 
@@ -179,13 +314,12 @@ def _subnormals(rng, shape, dtype):
 ROWS, COLS, B = 3, 4, 4
 
 
-@pytest.mark.parametrize("coupling_update", ["sequential", "simultaneous"])
-def test_array_env_subnormal_pattern_matches_jax(coupling_update):
-    """Rows of +z and -z devices (similarity 0 to the checkerboard target)
-    with subnormal transverse parts, driven by +-2e6 A/m^2 on every device
-    (the 'global' mode, 1 ns pulses). Every such device is a fixed point to
-    XLA. Before the flush, the port's devices left their poles: by more
-    than 0.1 from step 3 (simultaneous) and step 14 (sequential)."""
+def _subnormal_array(coupling_update, steps, currents=(-2e6, 2e6)):
+    """The JAX and the port's 3 x 4 array envs from one state: rows of +z
+    and -z devices whose transverse parts are subnormals of either sign
+    (the 'global' mode, autoreset off), with ``steps`` actions of a current
+    drawn from ``currents`` (A/m^2) for 5 ns. Returns (port env, port state, JAX state, the jitted
+    JAX step, the actions)."""
     kw = dict(rows=ROWS, cols=COLS, dtype="float32", autoreset=False, action_mode="global",
               coupling_update=coupling_update)
     jenv = JArrayEnv(batch_size=B, config=JArrayConfig(**kw))
@@ -197,10 +331,20 @@ def test_array_env_subnormal_pattern_matches_jax(coupling_update):
     pattern[..., 2] = np.where(np.arange(ROWS) % 2 == 0, 1.0, -1.0)[None, :, None]
     jstate = jstate.replace(pattern=jnp.asarray(pattern.reshape(B, ROWS * COLS, 3)))
     tstate = convert.array_state_from_numpy(_state_to_numpy(jstate), device="cpu")
-    step = jax.jit(jenv.step)
-    currents = rng.choice([-2e6, 2e6], (24, B))
-    for k, cur in enumerate(currents):
-        action = np.stack([np.full(B, 5e-9), cur], -1).astype(np.float32)
+    currents = rng.choice(list(currents), (steps, B))
+    actions = [np.stack([np.full(B, 5e-9), cur], -1).astype(np.float32) for cur in currents]
+    return tenv, tstate, jstate, jax.jit(jenv.step), actions
+
+
+@pytest.mark.parametrize("coupling_update", ["sequential", "simultaneous"])
+def test_array_env_subnormal_pattern_matches_jax(coupling_update):
+    """Rows of +z and -z devices (similarity 0 to the checkerboard target)
+    with subnormal transverse parts, driven by +-2e6 A/m^2 on every device
+    (the 'global' mode, 1 ns pulses). Every such device is a fixed point to
+    XLA. Before the flush, the port's devices left their poles: by more
+    than 0.1 from step 3 (simultaneous) and step 14 (sequential)."""
+    tenv, tstate, jstate, step, actions = _subnormal_array(coupling_update, 24)
+    for k, action in enumerate(actions):
         jstate, jts = step(jstate, jnp.asarray(action))
         tstate, tts = tenv.step(tstate, torch.from_numpy(action))
         _same_magnitudes(tstate.pattern.numpy(), jstate.pattern, f"pattern {k}")
@@ -209,6 +353,26 @@ def test_array_env_subnormal_pattern_matches_jax(coupling_update):
                                "pattern_improvement", "episode_return"), k, F32)
     np.testing.assert_array_equal(np.abs(tstate.pattern[..., 2].numpy()), 1.0)
     np.testing.assert_array_equal(tstate.pattern[..., :2].numpy(), 0.0)
+
+
+@pytest.mark.parametrize("coupling_update", ["sequential", "simultaneous"])
+def test_array_env_signed_zeros_match_jax(coupling_update):
+    """The pattern of ``test_array_env_subnormal_pattern_matches_jax``, its
+    subnormal transverse parts of either sign, under currents of -2e6, 0 or
+    2e6 A/m^2 an array: after every one of 6 steps each component is JAX's
+    by magnitude and sign bit. A driven device's transverse parts end at
+    +0, as in JAX; an undriven array keeps its subnormals, as XLA's select
+    passes them through, where a flush of the whole pattern to +0 loses
+    both their magnitude and their sign."""
+    tenv, tstate, jstate, step, actions = _subnormal_array(coupling_update, 6,
+                                                           (-2e6, 0.0, 2e6))
+    kept_negative = 0
+    for k, action in enumerate(actions):
+        jstate, _ = step(jstate, jnp.asarray(action))
+        tstate, _ = tenv.step(tstate, torch.from_numpy(action))
+        _same_signs(tstate.pattern.numpy(), jstate.pattern, f"pattern {k}")
+        kept_negative += int(np.signbit(np.asarray(jstate.pattern)[..., :2]).sum())
+    assert kept_negative > 0  # an undriven array kept negative subnormals
 
 
 # Atol of each racetrack quantity, in its own units, as the racetrack's
