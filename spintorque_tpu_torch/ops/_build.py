@@ -35,6 +35,8 @@ from typing import Collection, Dict, Optional
 
 import torch
 
+from ..utils.profiling import always_span, counter
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -122,6 +124,9 @@ def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
 
 
 _LIBRARY: Optional[KernelLibrary] = None
+# 1 where the process's library was compiled by nvcc at its load (its
+# ``build_seconds`` nonzero), 0 where it was found on disk.
+BUILDS = counter("kernels.builds")
 # Held by the first build and load, and by the probe of
 # ``ops.cuda_integrator.cuda_kernel_available``: threads of one process
 # that reach the first launch together (a serving refresh thread and the
@@ -142,7 +147,10 @@ def load_library() -> KernelLibrary:
 
 def _load_library() -> None:
     global _LIBRARY
-    _LIBRARY = build_library()
+    with always_span("kernels.load"):  # once a process: recorded with tracing off too
+        _LIBRARY = build_library()
+    if _LIBRARY.build_seconds > 0:
+        BUILDS.add()
 
 
 def build_library(csrc: Optional[Path] = None, optional: Collection[str] = ()) -> KernelLibrary:

@@ -30,7 +30,6 @@ priced at measured op latencies. The wrappers launch through
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -45,6 +44,8 @@ from ..physics.integrator import (
     noise_sigma,
 )
 from ..physics.llgs import LLGSParams, coefficients
+from ..utils.profiling import counter
+from ..utils.profiling import span as trace_span
 from . import _build
 from .philox import seed_key
 
@@ -57,28 +58,10 @@ PULSE_CHUNK = 8
 _METHODS = {"euler": 0, "heun": 1, "rk4": 2}
 
 
-class LaunchCounter:
-    """Counts the launches of one kernel: ``count``, a plain integer that
-    ``add`` raises under a lock, since kernels launch from several threads
-    of a process (a serving refresh thread, a worker pool's drainer)."""
-
-    def __init__(self) -> None:
-        self.count = 0
-        self._lock = threading.Lock()
-
-    def add(self) -> None:
-        with self._lock:
-            self.count += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.count = 0
-
-
-PULSE_LAUNCHES = LaunchCounter()  # K1
-PULSE_BF16_LAUNCHES = LaunchCounter()  # K6
-PULSE_SHARDED_LAUNCHES = LaunchCounter()  # K5 (float32 or bf16_rhs, on a shard)
-PROBE_LAUNCHES = LaunchCounter()  # K2
+PULSE_LAUNCHES = counter("pulse.launches")  # K1
+PULSE_BF16_LAUNCHES = counter("pulse.bf16_launches")  # K6
+PULSE_SHARDED_LAUNCHES = counter("pulse.sharded_launches")  # K5 (float32 or bf16_rhs, on a shard)
+PROBE_LAUNCHES = counter("probe.launches")  # K2
 
 
 def shard_env_offset(rank: int, local_batch: int) -> int:
@@ -419,7 +402,8 @@ def integrate_pulse_cuda(
         raise ValueError("integrate_pulse_cuda takes CUDA tensors")
     _check_tensor("span", span, mx0.device, mx0.shape)
     check_config(config)
-    dt, n = clamped_substep_counts(span, config)
+    with trace_span("cuda_integrator.dt_law"):
+        dt, n = clamped_substep_counts(span, config)
     return launch_pulse(m0, dt, n, current, params, config, seed, temperature,
                         env_offset=env_offset, sharded=sharded)
 
@@ -456,45 +440,48 @@ def launch_pulse(
     check_env_offset(env_offset, batch)
     if sharded is None:
         sharded = env_offset != 0
-    plus_z = params.plus_z if params.plus_z is not None else is_plus_z(params.easy_axis)
+    with trace_span("cuda_integrator.coefficients"):
+        plus_z = params.plus_z if params.plus_z is not None else is_plus_z(params.easy_axis)
+        c = coefficients(current, params)
+        per_env = {
+            "h_k": c.h_k, "ms": c.ms, "neg_gamma_eff": c.neg_gamma_eff,
+            "alpha": c.alpha, "stt": c.stt,
+        }
+        if not plus_z:
+            per_env.update(ex=c.ex, ey=c.ey, ez=c.ez)
+        if config.thermal:
+            per_env["sigma"] = noise_sigma(params, temperature, dt, config)
+        per_env = {k: _per_env(v, batch) for k, v in per_env.items()}
+        for k, v in per_env.items():
+            _check_tensor(k, v, device, (batch,))
 
-    c = coefficients(current, params)
-    per_env = {
-        "h_k": c.h_k, "ms": c.ms, "neg_gamma_eff": c.neg_gamma_eff,
-        "alpha": c.alpha, "stt": c.stt,
-    }
-    if not plus_z:
-        per_env.update(ex=c.ex, ey=c.ey, ez=c.ez)
-    if config.thermal:
-        per_env["sigma"] = noise_sigma(params, temperature, dt, config)
-    per_env = {k: _per_env(v, batch) for k, v in per_env.items()}
-    for k, v in per_env.items():
-        _check_tensor(k, v, device, (batch,))
+    with trace_span("cuda_integrator.sort"):
+        # Descending n: a warp then holds envs of similar length and runs to
+        # its own longest. Thread t integrates env perm[t] in place of a
+        # gather before the kernel and an unsort after it.
+        perm = torch.argsort(-n, stable=True)
 
-    # Descending n: a warp then holds envs of similar length and runs to
-    # its own longest. Thread t integrates env perm[t] in place of a
-    # gather before the kernel and an unsort after it.
-    perm = torch.argsort(-n, stable=True)
-    mx = torch.empty_like(mx0)
-    my = torch.empty_like(mx0)
-    mz = torch.empty_like(mx0)
-    failed = torch.empty((batch,), dtype=torch.bool, device=device)
-    seed_lo, seed_hi = seed_key(seed if config.thermal else 0)
+    with trace_span("cuda_integrator.launch"):
+        mx = torch.empty_like(mx0)
+        my = torch.empty_like(mx0)
+        mz = torch.empty_like(mx0)
+        failed = torch.empty((batch,), dtype=torch.bool, device=device)
+        seed_lo, seed_hi = seed_key(seed if config.thermal else 0)
 
-    def ptr(name):
-        t = per_env.get(name)
-        return None if t is None else t.data_ptr()
+        def ptr(name):
+            t = per_env.get(name)
+            return None if t is None else t.data_ptr()
 
-    rc = _build.launch(
-        _build.kernel_fn("spintorque_pulse_integrate"), device,
-        mx0.data_ptr(), my0.data_ptr(), mz0.data_ptr(), n.data_ptr(), dt.data_ptr(),
-        ptr("sigma"), ptr("h_k"), ptr("ms"), ptr("neg_gamma_eff"), ptr("alpha"), ptr("stt"),
-        ptr("ex"), ptr("ey"), ptr("ez"), perm.data_ptr(),
-        mx.data_ptr(), my.data_ptr(), mz.data_ptr(), failed.data_ptr(),
-        batch, _METHODS[config.method], int(config.thermal),
-        int(noise_draws(config) == 3), int(plus_z), int(config.bf16_rhs), seed_lo, seed_hi,
-        env_offset,
-    )
+        rc = _build.launch(
+            _build.kernel_fn("spintorque_pulse_integrate"), device,
+            mx0.data_ptr(), my0.data_ptr(), mz0.data_ptr(), n.data_ptr(), dt.data_ptr(),
+            ptr("sigma"), ptr("h_k"), ptr("ms"), ptr("neg_gamma_eff"), ptr("alpha"), ptr("stt"),
+            ptr("ex"), ptr("ey"), ptr("ez"), perm.data_ptr(),
+            mx.data_ptr(), my.data_ptr(), mz.data_ptr(), failed.data_ptr(),
+            batch, _METHODS[config.method], int(config.thermal),
+            int(noise_draws(config) == 3), int(plus_z), int(config.bf16_rhs), seed_lo, seed_hi,
+            env_offset,
+        )
     if rc != 0:
         raise RuntimeError(f"pulse kernel launch failed: cudaError {rc}")
     if sharded:

@@ -36,7 +36,7 @@ from typing import Any, Dict
 import torch
 
 from . import _build
-from .cuda_integrator import LaunchCounter
+from ..utils.profiling import counter
 
 Tensor = torch.Tensor
 
@@ -96,7 +96,7 @@ THROUGHPUT_STEPS = (20_000, 60_000)
 REPS = 3
 
 
-OP_CHAIN_LAUNCHES = LaunchCounter()  # K7
+OP_CHAIN_LAUNCHES = counter("op_chain.launches")  # K7
 
 
 def check_input(op: str, n: int, device="cpu", seed: int = 0) -> Tensor:

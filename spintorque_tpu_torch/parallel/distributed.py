@@ -25,6 +25,8 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import always_span
+
 
 def _local_rank(rank: int) -> int:
     if "LOCAL_RANK" in os.environ:
@@ -60,8 +62,9 @@ def initialize(
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if torch.cuda.is_available():
         torch.cuda.set_device(_local_rank(rank))
-    dist.init_process_group(backend, init_method=init_method or "env://",
-                            world_size=world_size, rank=rank)
+    with always_span("mesh.initialize"):  # once a process: recorded with tracing off too
+        dist.init_process_group(backend, init_method=init_method or "env://",
+                                world_size=world_size, rank=rank)
 
 
 def is_multihost() -> bool:

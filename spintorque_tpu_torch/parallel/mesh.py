@@ -38,12 +38,25 @@ from typing import Any, Dict, Optional
 import torch
 import torch.distributed as dist
 
-from ..ops.cuda_integrator import LaunchCounter
+from ..utils.profiling import counter, span
 
 Tensor = torch.Tensor
 
 # All-reduces over the 'model' axis (``model_all_reduce``), every caller's.
-MODEL_ALL_REDUCES = LaunchCounter()
+MODEL_ALL_REDUCES = counter("mesh.model_all_reduces")
+# Every all-reduce issued by ``all_reduce`` and ``model_all_reduce``, and
+# the bytes of the tensors they reduced.
+ALL_REDUCES = counter("mesh.all_reduces")
+ALL_REDUCE_BYTES = counter("mesh.all_reduce_bytes")
+
+
+def _all_reduce(x: Tensor, op, group) -> None:
+    """``dist.all_reduce`` in place, counted and inside the span
+    ``mesh.all_reduce``."""
+    with span("mesh.all_reduce"):
+        dist.all_reduce(x, op=op, group=group)
+    ALL_REDUCES.add()
+    ALL_REDUCE_BYTES.add(x.numel() * x.element_size())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,7 +211,7 @@ def all_reduce(x: Tensor, mesh: Optional[Mesh], op=None) -> Tensor:
     """``x`` reduced over the data axis (SUM by default), in place; the
     identity without a mesh or without a process group."""
     if mesh is not None and mesh.device_mesh is not None:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op, group=mesh.data_group)
+        _all_reduce(x, dist.ReduceOp.SUM if op is None else op, mesh.data_group)
     return x
 
 
@@ -213,7 +226,7 @@ def model_all_reduce(x: Tensor, mesh: Optional[Mesh]) -> Tensor:
     wide = x.dtype in (torch.bfloat16, torch.float16)
     y = x.to(torch.float32) if wide else x.clone()
     if mesh is not None and mesh.device_mesh is not None:
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.model_group)
+        _all_reduce(y, dist.ReduceOp.SUM, mesh.model_group)
         MODEL_ALL_REDUCES.add()
     return y
 

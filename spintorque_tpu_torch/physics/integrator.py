@@ -50,6 +50,8 @@ import torch
 
 from ..constants import GAMMA, KB_SOLVER, MU0
 from ..ops import philox
+from ..utils.profiling import count_on_device, tracing_enabled
+from ..utils.profiling import span as trace_span
 from .llgs import Coefficients, LLGSParams, coefficients, dmdt_from, normalize_with_fallback
 
 Tensor = torch.Tensor
@@ -393,16 +395,30 @@ def integrate_pulse(
     device raises. Each shard sorts its own
     envs by n, and its thermal draws are its rows of the unsharded stream,
     so a sharded pulse equals the unsharded one bit for bit.
+
+    Runs inside the span ``integrator.pulse``; with tracing on it keeps the
+    result for the device count ``pulse.plus_z_rows``, the rows that end
+    exactly at +z (the fallback's value), counted when the counts are read.
     """
     from ..ops.cuda_integrator import integrate_pulse_cuda, shard_env_offset
 
     sharded = mesh is not None
     env_offset = shard_env_offset(mesh.data_rank, m0[0].shape[0]) if sharded else 0
     device = m0[0].device
-    if device.type == "cuda":
-        return integrate_pulse_cuda(m0, span, current, params, config, seed, temperature,
-                                    env_offset=env_offset, sharded=sharded)
-    if device.type != "cpu":
+    if device.type not in ("cuda", "cpu"):
         raise ValueError(f"integrate_pulse runs on cuda or cpu tensors, not {device}")
-    return integrate_pulse_plain(m0, span, current, params, config, seed, temperature,
-                                 env_offset=env_offset)
+    with trace_span("integrator.pulse"):
+        if device.type == "cuda":
+            res = integrate_pulse_cuda(m0, span, current, params, config, seed, temperature,
+                                       env_offset=env_offset, sharded=sharded)
+        else:
+            res = integrate_pulse_plain(m0, span, current, params, config, seed, temperature,
+                                        env_offset=env_offset)
+    if tracing_enabled():
+        count_on_device("pulse.plus_z_rows", _plus_z_rows, res.m)
+    return res
+
+
+def _plus_z_rows(mx: Tensor, my: Tensor, mz: Tensor) -> Tensor:
+    """The rows of pulse results that are exactly (0, 0, 1)."""
+    return ((mx == 0) & (my == 0) & (mz == 1)).sum()

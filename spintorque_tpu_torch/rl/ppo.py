@@ -52,6 +52,7 @@ import torch
 from ..envs.spin_torque import EnvState, SpinTorqueEnv
 from ..ops.philox import derive_seed
 from ..parallel.mesh import all_reduce, model_all_reduce, pmean_metrics
+from ..utils.profiling import counter, span
 from .networks import (
     ActorCritic,
     continuous_action_transform,
@@ -62,6 +63,9 @@ from .networks import (
 )
 
 Tensor = torch.Tensor
+
+# Every minibatch step of the process's updates.
+MINIBATCHES = counter("ppo.minibatches")
 
 
 class PPOConfig(NamedTuple):
@@ -205,21 +209,24 @@ class PPOTrainer:
         """The rollout: ``rollout_steps`` env steps with the policy. Returns
         the advanced state and the trajectory, a dict of (T, B, ...)
         tensors."""
-        env_state, obs = ts.env_state, ts.obs
-        steps = {k: [] for k in _TRAJ_KEYS}
-        for _ in range(self.config.rollout_steps):
-            env_action, raw_action, log_prob, value = self.policy(ts.network, obs, ts.generator)
-            env_state, out = self.env.step(env_state, env_action)
-            record = dict(
-                obs=obs, raw_action=raw_action, reward=out.reward,
-                done=out.terminated | out.truncated, terminated=out.terminated,
-                log_prob=log_prob, value=value, success=out.info["is_success"],
-            )
-            for k, v in record.items():
-                steps[k].append(v)
-            obs = out.obs
-        traj = {k: torch.stack(v) for k, v in steps.items()}
-        return dataclasses.replace(ts, env_state=env_state, obs=obs), traj
+        with span("ppo.collect"):
+            env_state, obs = ts.env_state, ts.obs
+            steps = {k: [] for k in _TRAJ_KEYS}
+            for _ in range(self.config.rollout_steps):
+                with span("ppo.policy"):
+                    env_action, raw_action, log_prob, value = self.policy(ts.network, obs,
+                                                                          ts.generator)
+                env_state, out = self.env.step(env_state, env_action)
+                record = dict(
+                    obs=obs, raw_action=raw_action, reward=out.reward,
+                    done=out.terminated | out.truncated, terminated=out.terminated,
+                    log_prob=log_prob, value=value, success=out.info["is_success"],
+                )
+                for k, v in record.items():
+                    steps[k].append(v)
+                obs = out.obs
+            traj = {k: torch.stack(v) for k, v in steps.items()}
+            return dataclasses.replace(ts, env_state=env_state, obs=obs), traj
 
     def advantages(self, network: ActorCritic, traj: Dict[str, Tensor], last_obs: Tensor):
         """GAE over the trajectory, bootstrapped from the value of
@@ -309,40 +316,51 @@ class PPOTrainer:
         rows); the advantage statistics, gradients, losses and auxes are
         global, so every rank ends with the same parameters."""
         cfg = self.config
-        advantages, returns = self.advantages(network, traj, last_obs)
+        with span("ppo.gae"):
+            advantages, returns = self.advantages(network, traj, last_obs)
 
         def flat(x):
             return x.reshape((-1,) + x.shape[2:])
 
-        batch = dict(
-            obs=flat(traj["obs"]), raw_action=flat(traj["raw_action"]),
-            log_prob=flat(traj["log_prob"]), value=flat(traj["value"]),
-            advantage=flat(advantages), ret=flat(returns),
-        )
-        adv = batch["advantage"]
-        mean = pmean_metrics(adv, self.mesh)  # over every rank's rows
-        std = torch.sqrt(pmean_metrics((adv - mean) ** 2, self.mesh))  # population std
-        batch["advantage"] = (adv - mean) / (std + 1e-8)
+        with span("ppo.normalize"):
+            batch = dict(
+                obs=flat(traj["obs"]), raw_action=flat(traj["raw_action"]),
+                log_prob=flat(traj["log_prob"]), value=flat(traj["value"]),
+                advantage=flat(advantages), ret=flat(returns),
+            )
+            adv = batch["advantage"]
+            mean = pmean_metrics(adv, self.mesh)  # over every rank's rows
+            std = torch.sqrt(pmean_metrics((adv - mean) ** 2, self.mesh))  # population std
+            batch["advantage"] = (adv - mean) / (std + 1e-8)
         size = batch["log_prob"].shape[0] // cfg.num_minibatches
 
         losses, auxes = [], {k: [] for k in ("pg_loss", "v_loss", "entropy")}
         for e in range(cfg.num_epochs):
             for i in range(cfg.num_minibatches):
-                idx = perms[e, i * size:(i + 1) * size]
-                mb = {k: v.index_select(0, idx) for k, v in batch.items()}
-                optimizer.zero_grad(set_to_none=True)
-                total, aux = self.loss(network, mb)
-                total.backward()
-                self.average_grads(network)
-                self.clip_grads(network)
-                optimizer.step()
-                losses.append(total.detach())
-                for k, v in aux.items():
-                    auxes[k].append(v.detach())
+                MINIBATCHES.add()
+                with span("ppo.minibatch"):
+                    with span("ppo.forward"):
+                        idx = perms[e, i * size:(i + 1) * size]
+                        mb = {k: v.index_select(0, idx) for k, v in batch.items()}
+                        optimizer.zero_grad(set_to_none=True)
+                        total, aux = self.loss(network, mb)
+                    with span("ppo.backward"):
+                        total.backward()
+                    with span("ppo.average_grads"):
+                        self.average_grads(network)
+                    with span("ppo.clip"):
+                        self.clip_grads(network)
+                    with span("ppo.adam"):
+                        optimizer.step()
+                    losses.append(total.detach())
+                    for k, v in aux.items():
+                        auxes[k].append(v.detach())
         shape = (cfg.num_epochs, cfg.num_minibatches)
-        stacked = torch.stack([torch.stack(losses)] + [torch.stack(v) for v in auxes.values()])
-        if self.mesh is not None:
-            stacked = all_reduce(stacked, self.mesh) / self.mesh.shape["data"]
+        with span("ppo.metrics"):
+            stacked = torch.stack([torch.stack(losses)]
+                                  + [torch.stack(v) for v in auxes.values()])
+            if self.mesh is not None:
+                stacked = all_reduce(stacked, self.mesh) / self.mesh.shape["data"]
         losses, *rest = (x.reshape(shape) for x in stacked.unbind())
         return losses, dict(zip(auxes, rest))
 
@@ -350,22 +368,24 @@ class PPOTrainer:
         """The update phase of a train step on a collected trajectory
         (``ts`` already advanced by ``collect``); returns the step's
         metrics as device tensors."""
-        n = traj["log_prob"].numel()
-        perms = torch.stack([  # one permutation per epoch
-            torch.randperm(n, generator=ts.generator, device=ts.obs.device)
-            for _ in range(self.config.num_epochs)
-        ])
-        losses, auxes = self.update_from_traj(ts.network, ts.optimizer, traj, ts.obs, perms)
-        dtype = traj["reward"].dtype
-        return {
-            "loss": losses.mean(),
-            "pg_loss": auxes["pg_loss"].mean(),
-            "v_loss": auxes["v_loss"].mean(),
-            "entropy": auxes["entropy"].mean(),
-            **pmean_metrics({"mean_reward": traj["reward"],
-                             "success_rate": traj["success"].to(dtype)}, self.mesh),
-            "episodes": all_reduce(traj["done"].sum().reshape(1), self.mesh)[0],
-        }
+        with span("ppo.update"):
+            n = traj["log_prob"].numel()
+            perms = torch.stack([  # one permutation per epoch
+                torch.randperm(n, generator=ts.generator, device=ts.obs.device)
+                for _ in range(self.config.num_epochs)
+            ])
+            losses, auxes = self.update_from_traj(ts.network, ts.optimizer, traj, ts.obs, perms)
+            dtype = traj["reward"].dtype
+            with span("ppo.metrics"):
+                return {
+                    "loss": losses.mean(),
+                    "pg_loss": auxes["pg_loss"].mean(),
+                    "v_loss": auxes["v_loss"].mean(),
+                    "entropy": auxes["entropy"].mean(),
+                    **pmean_metrics({"mean_reward": traj["reward"],
+                                     "success_rate": traj["success"].to(dtype)}, self.mesh),
+                    "episodes": all_reduce(traj["done"].sum().reshape(1), self.mesh)[0],
+                }
 
     def train_step(self, ts: TrainState) -> Tuple[TrainState, Dict[str, Tensor]]:
         """One rollout and its update; metrics stay on the device."""

@@ -33,14 +33,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..envs.array import ArrayEnvState
-from ..envs.skyrmion import SkyrmionEnvState
-from ..envs.spin_torque import EnvState
-from ..rewards.composite import RunningStat
-
 Tensor = torch.Tensor
-
-_STATE_TYPES = {cls.__name__: cls for cls in (EnvState, ArrayEnvState, SkyrmionEnvState)}
 
 
 def _to_saveable(tree):
@@ -127,7 +120,14 @@ def _state_tree(state) -> dict:
 
 
 def _state_from_tree(tree: dict, device):
-    cls = _STATE_TYPES[tree["type"]]
+    # Imported here: ``utils`` is imported by the low layers (``ops``, for
+    # ``utils.profiling``), so its package imports nothing of the envs.
+    from ..envs.array import ArrayEnvState
+    from ..envs.skyrmion import SkyrmionEnvState
+    from ..envs.spin_torque import EnvState
+    from ..rewards.composite import RunningStat
+
+    cls = {c.__name__: c for c in (EnvState, ArrayEnvState, SkyrmionEnvState)}[tree["type"]]
 
     def on(x):
         return x.to(device) if isinstance(x, Tensor) else x

@@ -1,32 +1,130 @@
-"""Performance profiling: named host timers, device traces and a timing
-helper.
+"""Performance profiling: the port's spans and counters, device traces and a
+timing helper.
 
 PyTorch counterpart of ``spintorque_tpu/utils/profiling.py``:
 ``PerformanceProfiler`` (named wall-clock timers and counters),
 ``device_trace`` (a ``torch.profiler`` trace of CPU and CUDA activity,
 written as a Chrome trace) and ``block_and_time`` (steady-state wall clock
 of a callable, synchronizing the card around the timed calls).
+
+It is also the port's one tracing facility. ``PROFILER``, the process-wide
+``PerformanceProfiler``, stores:
+
+- **Spans**, named ``<module>.<phase>`` (``SPAN_NAMES``), entered with
+  ``with span(name):`` at the port's layer boundaries. Tracing is off by
+  default: ``span`` then tests one flag and returns a shared no-op context,
+  allocating nothing and reading no clock. With tracing on
+  (``tracing()``, ``device_trace``), each span keeps
+  its start and end (``time.perf_counter_ns``: CLOCK_MONOTONIC, one clock
+  for every process of a machine), its parent span, its self time (its
+  duration less its child spans') and the step it belongs to (the index
+  of the root span it lies under). Where a ``torch.profiler`` is recording,
+  a span also enters ``record_function`` under its name, so the trace
+  holds it as a ``user_annotation`` on the profiler's clock, around the
+  kernels it launched.
+- **Counters**: ``LaunchCounter``, plain integers raised under a lock,
+  counted whatever the switch; ``counter(name)`` registers one by name.
+- **Device counts** (``count_on_device``), only while tracing is on: the
+  results to count are kept, and counted on the device in a batch when
+  the counts are read at the end of a window
+  (``PROFILER.device_counts()``), or once ``KEEP_RESULTS`` are kept, so
+  that counting launches nothing in the phases that made the results (but
+  once in that many) and never synchronizes a step.
+
+Two spans are recorded whatever the switch, since each happens once a
+process: ``kernels.load`` (``ops._build``) and ``mesh.initialize``
+(``parallel.distributed.initialize``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+# Every span the port enters, by layer (PERF.md's table names the metric
+# each is for).
+SPAN_NAMES = (
+    # envs/spin_torque.py, SpinTorqueEnv.step
+    "spin_torque.step", "spin_torque.decode", "spin_torque.finish", "spin_torque.energy",
+    "spin_torque.observe", "spin_torque.reward", "spin_torque.reset",
+    # physics/integrator.py, ops/cuda_integrator.py: the pulse's host side
+    "integrator.pulse", "cuda_integrator.dt_law", "cuda_integrator.coefficients",
+    "cuda_integrator.sort", "cuda_integrator.launch",
+    # rl/ppo.py, PPOTrainer
+    "ppo.collect", "ppo.policy", "ppo.update", "ppo.gae", "ppo.normalize", "ppo.minibatch",
+    "ppo.forward", "ppo.backward", "ppo.average_grads", "ppo.clip", "ppo.adam", "ppo.metrics",
+    # parallel/
+    "mesh.all_reduce", "mesh.initialize",
+    # ops/_build.py
+    "kernels.load",
+)
+
+
+class LaunchCounter:
+    """The port's counter: ``count``, a plain integer that ``add`` raises
+    under a lock, since kernels launch from several threads of a process
+    (a serving refresh thread, a worker pool's drainer). Counts whatever
+    the tracing switch."""
+
+    def __init__(self) -> None:
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def add(self, amount: int = 1) -> None:
+        with self._lock:
+            self.count += amount
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+
+
+# A device count counts its kept results once this many results, or this
+# many rows, are kept (they hold device memory until then).
+KEEP_RESULTS = 256
+KEEP_ROWS = 1 << 22
+
+
+class _Kept:
+    """The results kept for one device count on one device."""
+
+    __slots__ = ("fn", "results", "rows")
+
+    def __init__(self, fn: Callable[..., torch.Tensor]):
+        self.fn = fn
+        self.results: List[Tuple[torch.Tensor, ...]] = []
+        self.rows = 0
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    parent: Optional[str]  # the enclosing span's name, None for a root
+    start_ns: int  # time.perf_counter_ns
+    end_ns: int
+    self_ns: int  # the duration less the child spans'
+    step: int  # the index of the root span it lies under, per thread
+    thread: int
+
 
 class PerformanceProfiler:
-    """Named wall-clock timers and counters."""
+    """Named wall-clock timers, counters and spans."""
 
     def __init__(self):
         self._times: Dict[str, list] = defaultdict(list)
-        self._counters: Dict[str, int] = defaultdict(int)
+        self._counters: Dict[str, LaunchCounter] = {}
+        self._counters_lock = threading.Lock()
         self._active: Dict[str, float] = {}
+        self._spans: List[SpanRecord] = []
+        self._device_counts: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+        self._kept: Dict[Tuple[str, torch.device], _Kept] = {}
+        self._kept_lock = threading.Lock()
 
     def start_timer(self, name: str) -> None:
         self._active[name] = time.perf_counter()
@@ -47,11 +145,88 @@ class PerformanceProfiler:
         finally:
             self.end_timer(name)
 
+    def counter(self, name: str) -> LaunchCounter:
+        """The counter registered under ``name``, made at its first use."""
+        with self._counters_lock:
+            c = self._counters.get(name)
+            if c is None:
+                c = self._counters[name] = LaunchCounter()
+            return c
+
     def increment_counter(self, name: str, amount: int = 1) -> None:
-        self._counters[name] += amount
+        self.counter(name).add(amount)
+
+    def counters(self) -> Dict[str, int]:
+        """Every registered counter's count (zeros included)."""
+        with self._counters_lock:
+            return {name: c.count for name, c in self._counters.items()}
+
+    def record_span(self, record: SpanRecord) -> None:
+        self._spans.append(record)  # one append: atomic under the interpreter lock
+
+    def spans(self) -> List[SpanRecord]:
+        """The spans recorded so far, in the order they ended."""
+        return list(self._spans)
+
+    def span_stats(self, steps: int = 1, since: int = 0) -> Dict[str, Dict[str, float]]:
+        """By span name: ``count``, ``total_ms`` and ``self_ms`` of the
+        spans recorded after the first ``since``, each over ``steps`` (per
+        step where ``steps`` is the window's step count)."""
+        out: Dict[str, Dict[str, float]] = {}
+        for r in self.spans()[since:]:
+            s = out.setdefault(r.name, {"count": 0, "total_ms": 0.0, "self_ms": 0.0})
+            s["count"] += 1
+            s["total_ms"] += (r.end_ns - r.start_ns) * 1e-6
+            s["self_ms"] += r.self_ns * 1e-6
+        return {name: {k: v / steps for k, v in s.items()} for name, s in out.items()}
+
+    def keep_for_count(self, name: str, fn: Callable[..., torch.Tensor],
+                       result: Tuple[torch.Tensor, ...]) -> None:
+        """Keeps ``result`` (equal-length tensors on one device) for the
+        device count ``name``, which adds up ``fn`` (a 0-dim integer
+        tensor from the rows of the kept results, concatenated) when the
+        counts are read, or once ``KEEP_RESULTS`` results or ``KEEP_ROWS``
+        rows are kept."""
+        key = (name, result[0].device)
+        with self._kept_lock:
+            kept = self._kept.get(key)
+            if kept is None:
+                kept = self._kept[key] = _Kept(fn)
+            kept.results.append(result)
+            kept.rows += result[0].numel()
+            full = len(kept.results) >= KEEP_RESULTS or kept.rows >= KEEP_ROWS
+            if full:
+                del self._kept[key]
+        if full:
+            self._count(key, kept)
+
+    def _count(self, key: Tuple[str, torch.device], kept: "_Kept") -> None:
+        columns = [torch.cat([r[i].reshape(-1) for r in kept.results])
+                   for i in range(len(kept.results[0]))]
+        value = kept.fn(*columns).to(torch.int64)
+        with self._kept_lock:
+            acc = self._device_counts.get(key)
+            if acc is None:
+                self._device_counts[key] = value
+            else:
+                acc += value
+
+    def device_counts(self) -> Dict[str, int]:
+        """Each device count summed over its devices: counts what is kept,
+        and reads the counts back (call it at the end of a window)."""
+        with self._kept_lock:
+            kept, self._kept = self._kept, {}
+        for key, k in kept.items():
+            self._count(key, k)
+        out: Dict[str, int] = defaultdict(int)
+        for (name, _), acc in list(self._device_counts.items()):
+            out[name] += int(acc)
+        return dict(out)
 
     def get_stats(self) -> Dict[str, Any]:
-        out: Dict[str, Any] = {"counters": dict(self._counters), "timers": {}}
+        """``counters`` (those that counted) and ``timers``."""
+        out: Dict[str, Any] = {"counters": {k: v for k, v in self.counters().items() if v},
+                               "timers": {}}
         for name, samples in self._times.items():
             arr = np.asarray(samples)
             out["timers"][name] = {
@@ -63,16 +238,129 @@ class PerformanceProfiler:
         return out
 
     def reset(self) -> None:
+        """Drops the timers, spans and device counts and zeroes the
+        counters (registered counters stay registered: modules hold them)."""
         self._times.clear()
-        self._counters.clear()
+        with self._counters_lock:
+            for c in self._counters.values():
+                c.reset()
         self._active.clear()
+        self._spans.clear()
+        with self._kept_lock:
+            self._kept.clear()
+            self._device_counts.clear()
+
+
+PROFILER = PerformanceProfiler()
+_tracing = False
+_local = threading.local()
+
+
+class _NoSpan:
+    """The shared context of a span with tracing off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "parent", "step", "start", "child_ns", "annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+            _local.roots = 0
+        self.parent = stack[-1] if stack else None
+        if self.parent is None:
+            self.step = _local.roots
+            _local.roots += 1
+        else:
+            self.step = self.parent.step
+        self.child_ns = 0
+        stack.append(self)
+        self.annotation = None
+        if torch.autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        _local.stack.pop()
+        duration = end - self.start
+        if self.parent is not None:
+            self.parent.child_ns += duration
+        PROFILER.record_span(SpanRecord(
+            self.name, None if self.parent is None else self.parent.name, self.start, end,
+            duration - self.child_ns, self.step, threading.get_ident()))
+        return False
+
+
+def span(name: str):
+    """A context that records the span ``name`` while tracing is on, and a
+    shared no-op one (one flag test) while it is off."""
+    if not _tracing:
+        return _NO_SPAN
+    return _Span(name)
+
+
+def always_span(name: str):
+    """A span recorded whatever the switch: for what happens once a
+    process (the kernels' load, the process group's start)."""
+    return _Span(name)
+
+
+def tracing_enabled() -> bool:
+    return _tracing
+
+
+@contextlib.contextmanager
+def tracing():
+    """Spans and device counts on for the block, on every thread of the
+    process; then as they were."""
+    global _tracing
+    was, _tracing = _tracing, True
+    try:
+        yield PROFILER
+    finally:
+        _tracing = was
+
+
+def counter(name: str) -> LaunchCounter:
+    """``PROFILER.counter(name)``: the process-wide counter ``name``."""
+    return PROFILER.counter(name)
+
+
+def count_on_device(name: str, fn: Callable[..., torch.Tensor],
+                    result: Tuple[torch.Tensor, ...]) -> None:
+    """Keeps ``result`` for the device count ``name``
+    (``PROFILER.keep_for_count``). Call it only while tracing is on
+    (``tracing_enabled()``), where the result is made."""
+    PROFILER.keep_for_count(name, fn, result)
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """Profile the block with ``torch.profiler`` (CPU, and CUDA where torch
-    sees a card) and write ``<log_dir>/trace.json``, a Chrome trace that
-    Perfetto reads. Yields the profiler, whose ``key_averages()`` give the
+    sees a card), with the port's spans on, and write
+    ``<log_dir>/trace.json``, a Chrome trace that Perfetto reads, in which
+    the spans lie as ``user_annotation`` events around the work they
+    launched. Yields the profiler, whose ``key_averages()`` give the
     kernels' device times. Synchronize the card inside the block so the
     trace holds the work it launched:
 
@@ -86,7 +374,7 @@ def device_trace(log_dir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, tracing():
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

@@ -39,6 +39,7 @@ from spintorque_tpu_torch import utils as U
 from spintorque_tpu_torch.ops import _build
 from spintorque_tpu_torch.ops import cuda_integrator as ci
 from spintorque_tpu_torch.physics.solver import params_from_dict
+from spintorque_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -219,7 +220,7 @@ def test_compare_kernel_sources_needs_the_card(tmp_path):
 
 
 def test_launch_counter_counts_every_thread():
-    counter = ci.LaunchCounter()
+    counter = profiling.LaunchCounter()
 
     def add(_):
         for _ in range(1000):
