@@ -109,9 +109,11 @@ struct PulseArgs {
   float* my;
   float* mz;
   bool* failed;
+  // The 64-bit Philox key (low word, high word), read from device memory by
+  // the producers of a thermal launch (null in a deterministic one), so that
+  // a launch captured in a CUDA graph draws the key its replay was given.
+  const uint64_t* key;
   int batch;
-  uint32_t seed_lo;
-  uint32_t seed_hi;
   uint32_t env_offset;  // global index of env 0 of this batch (K5's shard offset)
 };
 
@@ -266,6 +268,9 @@ __device__ __forceinline__ void produce(const PulseArgs& a, bool live, int64_t e
   // The Philox counter's env word: the wrapper checks env_offset + batch <= 2^32.
   const uint32_t key_env = a.env_offset + static_cast<uint32_t>(env);
   const float sigma = live ? a.sigma[env] : 0.0f;
+  const uint64_t key = *a.key;
+  const uint32_t seed_lo = static_cast<uint32_t>(key);
+  const uint32_t seed_hi = static_cast<uint32_t>(key >> 32);
   for (int k = q, u = 0; k < chunks; k += kProducers, ++u) {
     const int s = q * kSlotsPerProducer + (u % kSlotsPerProducer);
     // The first use of each slot passes at once (parity 1 of a fresh barrier).
@@ -275,7 +280,7 @@ __device__ __forceinline__ void produce(const PulseArgs& a, bool live, int64_t e
     const int len = min(C, n - i0);
     for (int j = 0; j < len; ++j) {
       float4 rec[R];
-      thermal_records<T, PER_STAGE>(key_env, static_cast<uint32_t>(i0 + j), a.seed_lo, a.seed_hi,
+      thermal_records<T, PER_STAGE>(key_env, static_cast<uint32_t>(i0 + j), seed_lo, seed_hi,
                                     sigma, rec);
 #pragma unroll
       for (int r = 0; r < R; ++r) slot[(j * R + r) * 32] = rec[r];
@@ -459,19 +464,22 @@ __global__ void check_bf16_ops_kernel(unsigned long long* counts, unsigned long 
 }  // namespace spintorque
 
 // Plain C entry points, bound with ctypes. Each launches on `stream` and
-// returns cudaGetLastError() (0 = launched). bf16 != 0 selects K6; env_offset
-// is the global index of env 0 (nonzero on every shard of K5 but the first).
+// returns cudaGetLastError() (0 = launched). bf16 != 0 selects K6; key points
+// to the thermal stream's 64-bit Philox key on the device (read only by a
+// thermal launch); env_offset is the global index of env 0 (nonzero on every
+// shard of K5 but the first).
 extern "C" int spintorque_pulse_integrate(
     const float* mx0, const float* my0, const float* mz0, const int32_t* n, const float* dt,
     const float* sigma, const float* h_k, const float* ms, const float* neg_gamma_eff,
     const float* alpha, const float* stt, const float* ex, const float* ey, const float* ez,
-    const int64_t* perm, float* mx, float* my, float* mz, bool* failed, int batch, int method,
-    int thermal, int per_stage, int plus_z, int bf16, unsigned int seed_lo, unsigned int seed_hi,
-    unsigned int env_offset, void* stream) {
+    const int64_t* perm, float* mx, float* my, float* mz, bool* failed,
+    const unsigned long long* key, int batch, int method, int thermal, int per_stage, int plus_z,
+    int bf16, unsigned int env_offset, void* stream) {
   using namespace spintorque;
-  if (batch <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || (thermal && key == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   const PulseArgs a{mx0, my0, mz0, n, dt, sigma, h_k, ms, neg_gamma_eff, alpha, stt, ex, ey,
-                    ez, perm, mx, my, mz, failed, batch, seed_lo, seed_hi, env_offset};
+                    ez, perm, mx, my, mz, failed, reinterpret_cast<const uint64_t*>(key), batch,
+                    env_offset};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return static_cast<int>(launch_type<Bf16>(a, method, thermal, per_stage, plus_z, s));

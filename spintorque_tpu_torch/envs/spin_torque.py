@@ -16,6 +16,9 @@ of its own (``ops.philox.step_generator``). A step is therefore a function
 of its state: stepping one state twice gives the same outputs and next
 states, bit for bit.
 
+On CUDA ``step`` replays one captured CUDA graph of the eager step body
+(``envs.step_graph``), which gives the same bits; the CPU steps eagerly.
+
 On a mesh (``mesh=``, ``parallel.make_mesh``) ``batch_size`` stays the global
 B and each rank holds its B/W rows: the pulse runs on the rank's shard (K5
 on CUDA) with the shard's global env indices in the thermal stream, and
@@ -50,6 +53,7 @@ from ..physics.integrator import (
 )
 from ..rewards import CompositeReward, RewardContext, RunningStat, default_reward_config
 from ..utils.profiling import counter, span
+from .step_graph import EAGER_STEPS, StepGraphs
 
 Tensor = torch.Tensor
 
@@ -187,6 +191,8 @@ class SpinTorqueEnv:
         self._local_rows = local_rows(batch_size, mesh)
         self.local_batch_size = self._local_rows.stop - self._local_rows.start
         dtype = config.torch_dtype
+        # Raised by every setter of what a captured step bakes in.
+        self._graph_version = 0
 
         if target_states is None:
             targets = np.array([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]])
@@ -212,6 +218,7 @@ class SpinTorqueEnv:
                 config.energy_penalty_weight, config.observation_mode
             )
         self.reward = CompositeReward(reward_components)
+        self._graphs = StepGraphs(self) if self.device.type == "cuda" else None
 
     @property
     def device_params(self) -> DeviceParams:
@@ -233,6 +240,24 @@ class SpinTorqueEnv:
         self._device_params = params
         # Resolved once here: deciding per step would read the axis back.
         self._llgs = dataclasses.replace(llgs, plus_z=is_plus_z(llgs.easy_axis))
+        self._graph_version += 1
+
+    @property
+    def target_states(self) -> Tensor:
+        """The (K, 3) unit targets the reset draws from."""
+        return self._target_states
+
+    @target_states.setter
+    def target_states(self, targets: Tensor) -> None:
+        self._target_states = targets
+        self._graph_version += 1
+
+    def graph_version(self):
+        """The version of what a captured step bakes in as a tensor address
+        or a Python number: raised by the ``device_params`` and
+        ``target_states`` setters, and the reward's (``CompositeReward``,
+        its ``version``); part of the captured steps' key."""
+        return (self._graph_version, self.reward, self.reward.version)
 
     # ------------------------------------------------------------------ API
 
@@ -298,22 +323,31 @@ class SpinTorqueEnv:
         )
         return self.target_states[self._rows(idx)]
 
+    def _action_tensor(self, action) -> Tensor:
+        """The action as a tensor on the env's device (a copy from the host
+        for a numpy array), in the configuration's dtype for continuous
+        actions, a single env's [current, duration] pair as one row."""
+        cfg = self.config
+        if cfg.action_mode != "continuous":
+            return torch.as_tensor(action, device=self.device)
+        action = torch.as_tensor(action, dtype=cfg.torch_dtype, device=self.device)
+        if action.ndim == 1 and self.local_batch_size == 1 and action.shape[0] == 2:
+            # A single env given the documented [current, duration] pair.
+            action = action[None, :]
+        if action.ndim == 1 and action.shape[0] != self.local_batch_size:
+            raise ValueError(
+                f"1-D continuous action of length {action.shape[0]} does "
+                f"not match the batch of {self.local_batch_size} envs; pass "
+                "(B, 2) [current, duration] actions"
+            )
+        return action
+
     def _decode_action(self, action) -> Tuple[Tensor, Tensor]:
         """Action -> (J, duration) with the safety clamps."""
         cfg = self.config
-        dtype = cfg.torch_dtype
+        action = self._action_tensor(action)
         if cfg.action_mode == "continuous":
-            action = torch.as_tensor(action, dtype=dtype, device=self.device)
-            if action.ndim == 1 and self.local_batch_size == 1 and action.shape[0] == 2:
-                # A single env given the documented [current, duration] pair.
-                action = action[None, :]
             if action.ndim == 1:  # (B,) current-only -> default 1 ns
-                if action.shape[0] != self.local_batch_size:
-                    raise ValueError(
-                        f"1-D continuous action of length {action.shape[0]} does "
-                        f"not match the batch of {self.local_batch_size} envs; pass "
-                        "(B, 2) [current, duration] actions"
-                    )
                 current = action
                 duration = torch.full_like(current, 1e-9)
             else:
@@ -324,7 +358,7 @@ class SpinTorqueEnv:
             current = torch.where(bad, 0.0, current)
             duration = torch.where(bad, 1e-12, duration)
         else:
-            idx = torch.as_tensor(action, device=self.device).to(torch.int32).reshape(-1)
+            idx = action.to(torch.int32).reshape(-1)
             current_idx = torch.clamp(idx // _N_DURATIONS, 0, _N_CURRENTS - 1)
             duration_idx = torch.clamp(idx % _N_DURATIONS, 0, _N_DURATIONS - 1)
             current = self._current_levels[current_idx.long()]
@@ -372,11 +406,25 @@ class SpinTorqueEnv:
         }
 
     def step(self, state: EnvState, action) -> Tuple[EnvState, TimeStep]:
+        """One step of every env: (next state, TimeStep). On CUDA a replay
+        of the captured step (``envs.step_graph``); eager on the CPU, inside
+        another capture, and for an action that requires grad (which the
+        pulse kernel refuses)."""
         ENV_STEPS.add()
         with span("spin_torque.step"):
-            return self._step(state, action)
+            if (self._graphs is None or torch.cuda.is_current_stream_capturing()
+                    or getattr(action, "requires_grad", False)):
+                EAGER_STEPS.add()
+                next_state, ts, _ = self._step(state, action)
+                return next_state, ts
+            return self._graphs.step(self, state, action)
 
-    def _step(self, state: EnvState, action) -> Tuple[EnvState, TimeStep]:
+    def _step(self, state: EnvState, action, key=None, generator=None):
+        """The eager step body: (next state, TimeStep, the pulse's m). Its
+        draws are keyed by the state's (seed, counter), unless a captured
+        step passes its own ``key`` (the pulse's, a device tensor) and
+        ``generator`` (the auto-reset draws'), which it sets to the same
+        values before each replay."""
         cfg = self.config
         B = self.local_batch_size
 
@@ -394,7 +442,7 @@ class SpinTorqueEnv:
             current=current,
             params=self._llgs,
             config=self._integrator,
-            seed=derive_seed(state.seed, state.counter),
+            seed=derive_seed(state.seed, state.counter) if key is None else key,
             temperature=cfg.temperature,
             mesh=self._split_mesh,
         )
@@ -472,7 +520,9 @@ class SpinTorqueEnv:
         if cfg.autoreset:
             with span("spin_torque.reset"):
                 # Done envs are reset on the device, by selects.
-                generator = step_generator(state.seed, state.counter, RESET_STREAM, self.device)
+                if generator is None:
+                    generator = step_generator(state.seed, state.counter, RESET_STREAM,
+                                               self.device)
                 m_reset = self._sample_m(generator)
                 t_reset = self._sample_target(generator)
                 d3 = done[:, None]
@@ -509,4 +559,4 @@ class SpinTorqueEnv:
             terminated=terminated,
             truncated=truncated,
             info=info,
-        )
+        ), res.m

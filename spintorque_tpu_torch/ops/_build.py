@@ -237,9 +237,9 @@ def _bind(lib: ctypes.CDLL, optional: Collection[str] = ()) -> None:
     # int as a 32-bit int.
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     signatures = {
-        # 19 pointers; batch, method, thermal, per_stage, plus_z, bf16;
-        # seed_lo, seed_hi, env_offset; stream.
-        "spintorque_pulse_integrate": [p] * 19 + [i] * 6 + [u, u, u, p],
+        # 19 pointers and the key's; batch, method, thermal, per_stage,
+        # plus_z, bf16; env_offset; stream.
+        "spintorque_pulse_integrate": [p] * 20 + [i] * 6 + [u, p],
         "spintorque_probe_add_one": [p, p, i, p],
         "spintorque_check_div6": [p, p],  # counts, stream
         "spintorque_check_bf16_ops": [p, p, p],  # counts, first, stream

@@ -47,7 +47,7 @@ from ..physics.llgs import LLGSParams, coefficients
 from ..utils.profiling import counter
 from ..utils.profiling import span as trace_span
 from . import _build
-from .philox import seed_key
+from .philox import as_int64
 
 Tensor = torch.Tensor
 
@@ -367,6 +367,17 @@ def _per_env(t: Tensor, batch: int) -> Tensor:
     return torch.broadcast_to(t, (batch,)).contiguous()
 
 
+def pulse_key(seed, device) -> Tensor:
+    """The thermal stream's Philox key as the kernel reads it: a 0-dim int64
+    CUDA tensor holding the 64-bit ``seed`` (``philox.as_int64``), filled in
+    stream order. A tensor ``seed`` is such a key already (a captured env
+    step's, filled before each replay) and is checked and passed on."""
+    if isinstance(seed, Tensor):
+        _check_tensor("seed", seed, device, (), torch.int64)
+        return seed
+    return torch.full((), as_int64(seed), dtype=torch.int64, device=device)
+
+
 def integrate_pulse_cuda(
     m0: Tuple[Tensor, Tensor, Tensor],
     span: Tensor,
@@ -387,7 +398,10 @@ def integrate_pulse_cuda(
     on an ``env_offset`` whose global indices pass 2^32. Launches K6 when
     ``config.bf16_rhs``, else K1, on the current stream and does not
     synchronize; it reads nothing back from the device unless
-    ``params.plus_z`` is None. ``env_offset`` is the global index of env 0
+    ``params.plus_z`` is None. ``seed`` is the thermal stream's 64-bit key,
+    or a 0-dim int64 tensor on the device holding it (``pulse_key``): the
+    kernel reads the key from device memory, so a launch captured in a CUDA
+    graph takes the key its replay was given. ``env_offset`` is the global index of env 0
     in the thermal stream; a ``sharded`` launch (default: a nonzero offset)
     is K5 and counts in ``PULSE_SHARDED_LAUNCHES``.
 
@@ -466,7 +480,7 @@ def launch_pulse(
         my = torch.empty_like(mx0)
         mz = torch.empty_like(mx0)
         failed = torch.empty((batch,), dtype=torch.bool, device=device)
-        seed_lo, seed_hi = seed_key(seed if config.thermal else 0)
+        key = pulse_key(seed, device) if config.thermal else None
 
         def ptr(name):
             t = per_env.get(name)
@@ -478,9 +492,9 @@ def launch_pulse(
             ptr("sigma"), ptr("h_k"), ptr("ms"), ptr("neg_gamma_eff"), ptr("alpha"), ptr("stt"),
             ptr("ex"), ptr("ey"), ptr("ez"), perm.data_ptr(),
             mx.data_ptr(), my.data_ptr(), mz.data_ptr(), failed.data_ptr(),
-            batch, _METHODS[config.method], int(config.thermal),
-            int(noise_draws(config) == 3), int(plus_z), int(config.bf16_rhs), seed_lo, seed_hi,
-            env_offset,
+            None if key is None else key.data_ptr(), batch, _METHODS[config.method],
+            int(config.thermal), int(noise_draws(config) == 3), int(plus_z),
+            int(config.bf16_rhs), env_offset,
         )
     if rc != 0:
         raise RuntimeError(f"pulse kernel launch failed: cudaError {rc}")

@@ -64,6 +64,13 @@ def seed_key(seed: int) -> Tuple[int, int]:
     return seed & _MASK32, seed >> 32
 
 
+def as_int64(seed: int) -> int:
+    """The 64-bit seed as the signed 64-bit integer of the same bits, which
+    an int64 tensor holds (the pulse kernel reads its key from one)."""
+    seed &= _MASK64
+    return seed - (1 << 64) if seed >> 63 else seed
+
+
 def derive_seed(seed: int, counter: int) -> int:
     """A 64-bit seed for the ``counter``-th call from a base seed
     (SplitMix64 of seed + (counter + 1) * golden gamma). Host arithmetic
@@ -81,14 +88,20 @@ RESET_STREAM = 1  # auto-reset states
 KICK_STREAM = 2  # the racetrack's thermal kicks
 
 
+def step_seed(seed: int, counter: int, stream: int) -> int:
+    """The seed of stream ``stream`` of step ``counter``:
+    derive_seed(derive_seed(seed, counter), stream), a key of its own, never
+    the pulse's."""
+    return derive_seed(derive_seed(seed, counter), stream)
+
+
 def step_generator(seed: int, counter: int, stream: int, device) -> torch.Generator:
     """A torch.Generator on ``device`` for stream ``stream`` of step
-    ``counter``, seeded with derive_seed(derive_seed(seed, counter), stream):
-    a key of its own, never the pulse's. A step that draws from it reads and
-    advances nothing of the state, so stepping one state twice draws the
-    same numbers."""
+    ``counter``, seeded with ``step_seed(seed, counter, stream)``. A step that
+    draws from it reads and advances nothing of the state, so stepping one
+    state twice draws the same numbers."""
     generator = torch.Generator(device=device)
-    generator.manual_seed(derive_seed(derive_seed(seed, counter), stream))
+    generator.manual_seed(step_seed(seed, counter, stream))
     return generator
 
 

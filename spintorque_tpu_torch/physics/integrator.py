@@ -379,7 +379,9 @@ def integrate_pulse(
         params: LLGSParams with 0-dim or (B,) fields.
         config: IntegratorConfig.
         seed: 64-bit key of the Philox thermal stream (required when
-            config.thermal).
+            config.thermal); on CUDA also a 0-dim int64 tensor on the
+            device holding it (``ops.cuda_integrator.pulse_key``), as a
+            captured env step passes it.
         temperature: float or (B,) tensor, Kelvin.
         mesh: the ``parallel.Mesh`` whose 'data' shard this batch is (B is
             then the rank's local batch); its thermal draws are keyed from
@@ -414,9 +416,16 @@ def integrate_pulse(
         else:
             res = integrate_pulse_plain(m0, span, current, params, config, seed, temperature,
                                         env_offset=env_offset)
-    if tracing_enabled():
-        count_on_device("pulse.plus_z_rows", _plus_z_rows, res.m)
+    count_plus_z_rows(res.m)
     return res
+
+
+def count_plus_z_rows(m: Tuple[Tensor, Tensor, Tensor]) -> None:
+    """With tracing on, keeps a pulse's result ``m`` for the device count
+    ``pulse.plus_z_rows`` (a captured env step's replays pass their owned
+    copy of it)."""
+    if tracing_enabled():
+        count_on_device("pulse.plus_z_rows", _plus_z_rows, m)
 
 
 def _plus_z_rows(mx: Tensor, my: Tensor, mz: Tensor) -> Tensor:

@@ -65,6 +65,9 @@ class CompositeReward:
     def __init__(self, components: Dict[str, Dict[str, Any]]):
         self.components = {}
         self.total_weight = 0.0
+        # Raised by every change of the components (a captured env step
+        # bakes their weights, normalizations and clips in).
+        self.version = 0
         for name, config in components.items():
             self._add(name, config)
 
@@ -80,6 +83,7 @@ class CompositeReward:
             "clip": config.get("clip", None),
         }
         self.total_weight += abs(float(config["weight"]))
+        self.version += 1
 
     def add_component(self, name, weight, function, normalize=None, clip=None):
         self._add(name, {"weight": weight, "function": function,
@@ -89,6 +93,7 @@ class CompositeReward:
         if name in self.components:
             self.total_weight -= abs(self.components[name]["weight"])
             del self.components[name]
+            self.version += 1
 
     def update_weight(self, name: str, new_weight: float) -> None:
         if name not in self.components:
@@ -96,6 +101,7 @@ class CompositeReward:
         self.total_weight -= abs(self.components[name]["weight"])
         self.components[name]["weight"] = float(new_weight)
         self.total_weight += abs(new_weight)
+        self.version += 1
 
     def get_component_names(self):
         return list(self.components)

@@ -24,6 +24,8 @@ It is also the port's one tracing facility. ``PROFILER``, the process-wide
   kernels it launched.
 - **Counters**: ``LaunchCounter``, plain integers raised under a lock,
   counted whatever the switch; ``counter(name)`` registers one by name.
+  A CUDA graph's capture holds the counts of what it records
+  (``held_counts``), and each replay adds them.
 - **Device counts** (``count_on_device``), only while tracing is on: the
   results to count are kept, and counted on the device in a batch when
   the counts are read at the end of a window
@@ -53,7 +55,7 @@ import torch
 SPAN_NAMES = (
     # envs/spin_torque.py, SpinTorqueEnv.step
     "spin_torque.step", "spin_torque.decode", "spin_torque.finish", "spin_torque.energy",
-    "spin_torque.observe", "spin_torque.reward", "spin_torque.reset",
+    "spin_torque.observe", "spin_torque.reward", "spin_torque.reset", "spin_torque.replay",
     # physics/integrator.py, ops/cuda_integrator.py: the pulse's host side
     "integrator.pulse", "cuda_integrator.dt_law", "cuda_integrator.coefficients",
     "cuda_integrator.sort", "cuda_integrator.launch",
@@ -67,17 +69,25 @@ SPAN_NAMES = (
 )
 
 
+# The counts held on this thread (``held_counts``), or None.
+_held = threading.local()
+
+
 class LaunchCounter:
     """The port's counter: ``count``, a plain integer that ``add`` raises
     under a lock, since kernels launch from several threads of a process
     (a serving refresh thread, a worker pool's drainer). Counts whatever
-    the tracing switch."""
+    the tracing switch, but inside ``held_counts`` on the same thread."""
 
     def __init__(self) -> None:
         self.count = 0
         self._lock = threading.Lock()
 
     def add(self, amount: int = 1) -> None:
+        held = getattr(_held, "counts", None)
+        if held is not None:
+            held[self] = held.get(self, 0) + amount
+            return
         with self._lock:
             self.count += amount
 
@@ -350,8 +360,26 @@ def count_on_device(name: str, fn: Callable[..., torch.Tensor],
                     result: Tuple[torch.Tensor, ...]) -> None:
     """Keeps ``result`` for the device count ``name``
     (``PROFILER.keep_for_count``). Call it only while tracing is on
-    (``tracing_enabled()``), where the result is made."""
-    PROFILER.keep_for_count(name, fn, result)
+    (``tracing_enabled()``), where the result is made. Inside
+    ``held_counts`` it keeps nothing: a capture's result is a graph's
+    buffer, which every replay overwrites."""
+    if getattr(_held, "counts", None) is None:
+        PROFILER.keep_for_count(name, fn, result)
+
+
+@contextlib.contextmanager
+def held_counts():
+    """For a CUDA graph's capture, which records launches and runs none:
+    inside the block, counters raised on this thread are held in the
+    yielded dict ({counter: amount}) and not counted, and device counts keep
+    nothing. Each replay of the graph then adds what the capture held
+    (``LaunchCounter.add``), so the counters count what ran."""
+    outer = getattr(_held, "counts", None)
+    held = _held.counts = {}
+    try:
+        yield held
+    finally:
+        _held.counts = outer
 
 
 @contextlib.contextmanager

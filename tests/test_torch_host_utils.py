@@ -136,7 +136,8 @@ def test_bind_leaves_out_entry_points_an_older_library_lacks(monkeypatch):
     for n in OLDER_ENTRY_POINTS:
         fn = getattr(older, n)
         assert fn.restype is _build.ctypes.c_int and fn.argtypes[-1] is _build.ctypes.c_void_p
-    assert len(older.spintorque_pulse_integrate.argtypes) == 29
+    # 20 pointers (the Philox key's among them), 6 ints, env_offset, the stream.
+    assert len(older.spintorque_pulse_integrate.argtypes) == 28
     monkeypatch.setattr(_build, "_KERNEL_FNS", {})
     monkeypatch.setattr(_build, "_LIBRARY", _build.KernelLibrary(older, Path("old.so"), 0.0, ""))
     assert _build.kernel_fn("spintorque_check_div6") is older.spintorque_check_div6
