@@ -48,8 +48,16 @@ from ..ops.philox import RESET_STREAM, step_generator
 from ..parallel.mesh import resolve_device
 from ..physics.integrator import flush_subnormal
 from ..rewards import CompositeReward, RewardContext, RunningStat
+from ..utils.profiling import counter, span
 
 Tensor = torch.Tensor
+
+# Host counters, counted whatever the tracing switch: steps, and devices
+# swept a step (N in either coupling mode: one after another in the
+# sequential sweep, N updates of 10 substeps each; all together in the
+# simultaneous one, one set of 10 substeps over the N).
+ARRAY_STEPS = counter("array.steps")
+DEVICE_UPDATES = counter("array.device_updates")
 
 _HARDCODED_ALPHA = 0.01
 _HARDCODED_GAMMA = GAMMA
@@ -260,7 +268,9 @@ class SpinTorqueArrayEnv:
         """One step. ``mesh`` is accepted for a step API uniform with
         SpinTorqueEnv and ignored: the arrays are independent."""
         del mesh
-        return self._step(state, action)
+        ARRAY_STEPS.add()
+        with span("array.step"):
+            return self._step(state, action)
 
     def observe(self, state: ArrayEnvState):
         cfg = self.config
@@ -418,48 +428,54 @@ class SpinTorqueArrayEnv:
     def _step(self, state: ArrayEnvState, action):
         cfg = self.config
         B = self.batch_size
-        mask, current, duration = self._decode_action(action)
+        with span("array.decode"):
+            mask, current, duration = self._decode_action(action)
         prev_similarity = self._similarity(state.pattern, state.target)
 
-        if cfg.coupling_update == "simultaneous":
-            pattern, step_energy = self._simultaneous_sweep(state.pattern, mask, current, duration)
-        else:
-            pattern, step_energy = self._sequential_sweep(state.pattern, mask, current, duration)
+        with span("array.sweep"):
+            if cfg.coupling_update == "simultaneous":
+                pattern, step_energy = self._simultaneous_sweep(state.pattern, mask, current,
+                                                                duration)
+            else:
+                pattern, step_energy = self._sequential_sweep(state.pattern, mask, current,
+                                                              duration)
+            DEVICE_UPDATES.add(cfg.n_devices)
 
         total_energy = state.total_energy + step_energy
         step = state.step + 1
 
-        similarity = self._similarity(pattern, state.target)
-        improvement = similarity - prev_similarity
-        is_success = similarity >= cfg.success_threshold
+        with span("array.reward"):
+            similarity = self._similarity(pattern, state.target)
+            improvement = similarity - prev_similarity
+            is_success = similarity >= cfg.success_threshold
+            magnitudes = torch.linalg.vector_norm(pattern, dim=-1)  # (B, N)
+            ctx = RewardContext(
+                is_success=is_success,
+                step_energy=step_energy,
+                alignment=similarity,
+                alignment_improvement=improvement,
+                magnetization_norm=magnitudes.mean(-1),
+                step_count=step,
+                total_energy=total_energy,
+                action_current=current,
+                action_duration=duration,
+                extras={
+                    "pattern_similarity": similarity,
+                    "pattern_improvement": improvement,
+                    # The population std, as JAX's.
+                    "magnitude_std": magnitudes.std(-1, correction=0),
+                },
+            )
+            reward, breakdown, new_stats = self.reward.compute(ctx, state.reward_stats)
+            episode_return = state.episode_return + reward
         terminated = is_success
         truncated = step >= cfg.max_steps
         done = terminated | truncated
 
-        magnitudes = torch.linalg.vector_norm(pattern, dim=-1)  # (B, N)
         mid_state = dataclasses.replace(state, pattern=pattern, step=step,
                                         total_energy=total_energy, counter=state.counter + 1)
-        obs_step = self.observe(mid_state)
-
-        ctx = RewardContext(
-            is_success=is_success,
-            step_energy=step_energy,
-            alignment=similarity,
-            alignment_improvement=improvement,
-            magnetization_norm=magnitudes.mean(-1),
-            step_count=step,
-            total_energy=total_energy,
-            action_current=current,
-            action_duration=duration,
-            extras={
-                "pattern_similarity": similarity,
-                "pattern_improvement": improvement,
-                # The population std, as JAX's.
-                "magnitude_std": magnitudes.std(-1, correction=0),
-            },
-        )
-        reward, breakdown, new_stats = self.reward.compute(ctx, state.reward_stats)
-        episode_return = state.episode_return + reward
+        with span("array.observe"):
+            obs_step = self.observe(mid_state)
 
         info = {
             "step_count": step,
@@ -473,25 +489,28 @@ class SpinTorqueArrayEnv:
         }
 
         if cfg.autoreset:
-            m_reset = self._sample_pattern(
-                step_generator(state.seed, state.counter, RESET_STREAM, self.device))
-            next_state = dataclasses.replace(
-                mid_state,
-                pattern=torch.where(done[:, None, None], m_reset, pattern),
-                step=torch.where(done, 0, step),
-                total_energy=torch.where(done, 0.0, total_energy),
-                episode_return=torch.where(done, 0.0, episode_return),
-                reward_stats=new_stats,
-            )
-            obs_reset = self.observe(next_state)
+            with span("array.reset"):
+                m_reset = self._sample_pattern(
+                    step_generator(state.seed, state.counter, RESET_STREAM, self.device))
+                next_state = dataclasses.replace(
+                    mid_state,
+                    pattern=torch.where(done[:, None, None], m_reset, pattern),
+                    step=torch.where(done, 0, step),
+                    total_energy=torch.where(done, 0.0, total_energy),
+                    episode_return=torch.where(done, 0.0, episode_return),
+                    reward_stats=new_stats,
+                )
+                with span("array.observe"):
+                    obs_reset = self.observe(next_state)
 
-            def pick(reset, stepped):
-                return torch.where(done.reshape((B,) + (1,) * (stepped.ndim - 1)), reset, stepped)
+                def pick(reset, stepped):
+                    return torch.where(done.reshape((B,) + (1,) * (stepped.ndim - 1)), reset,
+                                       stepped)
 
-            if isinstance(obs_step, dict):
-                obs = {k: pick(obs_reset[k], v) for k, v in obs_step.items()}
-            else:
-                obs = pick(obs_reset, obs_step)
+                if isinstance(obs_step, dict):
+                    obs = {k: pick(obs_reset[k], v) for k, v in obs_step.items()}
+                else:
+                    obs = pick(obs_reset, obs_step)
             info["final_observation"] = obs_step
         else:
             next_state = dataclasses.replace(

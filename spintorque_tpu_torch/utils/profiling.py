@@ -56,6 +56,8 @@ SPAN_NAMES = (
     # envs/spin_torque.py, SpinTorqueEnv.step
     "spin_torque.step", "spin_torque.decode", "spin_torque.finish", "spin_torque.energy",
     "spin_torque.observe", "spin_torque.reward", "spin_torque.reset", "spin_torque.replay",
+    # envs/array.py, SpinTorqueArrayEnv.step
+    "array.step", "array.decode", "array.sweep", "array.reward", "array.reset", "array.observe",
     # physics/integrator.py, ops/cuda_integrator.py: the pulse's host side
     "integrator.pulse", "cuda_integrator.dt_law", "cuda_integrator.coefficients",
     "cuda_integrator.sort", "cuda_integrator.launch",
