@@ -27,7 +27,11 @@ an easy axis taken from a dict; the trajectory at B=4096 over 2 ns; the
 adaptive RK45 (B=4096), implicit midpoint and Radau (B=1024, the stiff
 case); the stable-state search and the energy landscape; the solver
 probes; ConfigManager().make_env(), the env and trainer checkpoint round
-trips and step purity of the three envs on the card. Then the shell
+trips and step purity of the three envs on the card; then the subnormal
+cases (``subnormal_phase``) and the array env's sequential sweep kernel
+(``array_sweep_phase``: the ``array-4x4`` cell's traffic through
+``SpinTorqueArrayEnv.step``, once a step, against the env routed to the
+plain sweep; then the kernel against its plain version, timed). Then the shell
 (``shell_phase``): ``python -m spintorque_tpu_torch.cli info`` in a fresh
 process, and in this one the CLI's ``benchmark`` (B=4096), ``train`` (B=4096,
 the default PPO configuration, 3 updates) and ``eval --model`` of its
@@ -935,6 +939,117 @@ SUBNORMAL_CASES = (  # (name, span s, current A/m^2, transverse start)
 )
 
 
+def array_sweep_phase(dev, smi, B=4096, steps=64):
+    """The array env's sequential sweep kernel (``ops/array_sweep.py``,
+    ``csrc/array_sweep.cu``) at the ``array-4x4`` cell's shape and traffic:
+    B 4 x 4 STT-MRAM arrays, dipolar coupling, 'individual' actions
+    ``[index, I, dt]`` drawn uniform on the card (index 0-15, I +-2e6 A/m^2,
+    dt 1 ps-5 ns), auto-reset on.
+
+    First the main path: the counters set to 0, ``steps`` steps of
+    ``SpinTorqueArrayEnv.step``, which must launch the kernel once a step
+    and run no plain sweep; then the same steps from the same reset on an
+    env routed to the plain version, whose pattern, observation and reward
+    must agree (ms a step of each). Then the sweep called directly, kernel
+    against plain: the step energies and the unmoved devices bit for bit,
+    the moved devices within 1e-6; each one's CUDA-event mean ms a call, the
+    kernel's own device ms (the profiler) and the bound: the bytes it must
+    move at the card's rate. The launches are counted by path: ``env``
+    (the main path), ``direct`` (the calls after it)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spintorque_tpu_torch.envs import ArrayEnvConfig, SpinTorqueArrayEnv
+    from spintorque_tpu_torch.ops import array_sweep as aw
+
+    cfg = ArrayEnvConfig()
+    g = torch.Generator(device=dev)
+
+    def actions(seed):
+        g.manual_seed(seed)
+        out = []
+        for _ in range(steps):
+            u = torch.rand((3, B), generator=g, device=dev)
+            out.append(torch.stack([torch.floor(u[0] * cfg.n_devices).clamp_(max=cfg.n_devices - 1),
+                                    -2e6 + 4e6 * u[1], 1e-12 + (5e-9 - 1e-12) * u[2]], -1))
+        return out
+
+    def run(env, acts):
+        state, _ = env.reset(seed=31)
+        env.step(state, acts[0])  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in acts:
+            state, ts = env.step(state, a)
+        torch.cuda.synchronize()
+        return state, ts, (time.perf_counter() - t0) * 1e3 / len(acts)
+
+    acts = actions(23)
+    env = SpinTorqueArrayEnv(batch_size=B, config=cfg, device=dev)
+    check(env._sweep is aw.sequential_sweep, "a float32 array env on the card runs no kernel")
+    plain_env = SpinTorqueArrayEnv(batch_size=B, config=cfg, device=dev)
+    plain_env._sweep = aw.sequential_sweep_plain
+    aw.SWEEP_KERNELS.reset()
+    aw.SWEEP_EAGER.reset()
+    state, ts, env_ms = run(env, acts)
+    env_launches = (aw.SWEEP_KERNELS.count, aw.SWEEP_EAGER.count)
+    check(env_launches == (steps + 1, 0), f"array env: {steps + 1} steps ran the kernel / the "
+          f"plain sweep {env_launches} times, want {steps + 1} / 0")
+    want_state, want_ts, env_plain_ms = run(plain_env, acts)
+    check(aw.SWEEP_KERNELS.count == steps + 1 and aw.SWEEP_EAGER.count == steps + 1,
+          "the plain-routed env ran the kernel")
+    env_err = max(max_diff(state.pattern.cpu(), want_state.pattern.cpu()),
+                  max_diff(ts.obs.cpu(), want_ts.obs.cpu()),
+                  max_diff(ts.reward.cpu(), want_ts.reward.cpu()))
+    check(env_err <= 1e-6, f"array env, kernel vs plain route: {env_err}")
+    print(f"SpinTorqueArray-v0 4x4 B={B}, the array-4x4 traffic, {steps} steps: kernel route "
+          f"{env_ms:.3f} ms a step ({env_launches[0]} launches with the warm-up, "
+          f"{env_launches[1]} plain sweeps), plain route {env_plain_ms:.3f} ms a step; pattern, "
+          f"obs and reward within {env_err:.3g}  [{smi}]")
+
+    aw.SWEEP_KERNELS.reset()
+    state, _ = env.reset(seed=21)
+    mask, current, duration = env._decode_action(acts[0])
+    args = (state.pattern, mask, current, duration, env.coupling, env._easy_axis,
+            env.device_params, cfg.device_type)
+    out, energy = aw.sequential_sweep(*args)
+    want, want_energy = aw.sequential_sweep_plain(*args)
+    torch.cuda.synchronize()
+    moved = mask & (current.abs() > 1e-12)[:, None]
+    err = float((out - want).abs().max())
+    equal = float((bits(out) == bits(want)).float().mean())
+    check(torch.equal(bits(energy), bits(want_energy)), "array sweep: energies differ in bits")
+    check(torch.equal(bits(out[~moved]), bits(state.pattern[~moved])),
+          "array sweep: an unmoved device changed")
+    check(err <= 1e-6, f"array sweep: kernel vs plain m {err}")
+    aw.sequential_sweep(*args)  # warm
+    ms = cuda_ms(lambda: aw.sequential_sweep(*args), 200)
+    plain_ms = cuda_ms(lambda: aw.sequential_sweep_plain(*args), 5)
+    n_kernels, device_ms = kernels_per_call(lambda: aw.sequential_sweep(*args))
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(20):
+            aw.sequential_sweep(*args)
+        torch.cuda.synchronize()
+    times = [e.self_device_time_total for e in p.key_averages() if "array_sweep_kernel" in e.key]
+    kernel_ms = sum(times) / 20 / 1e3 if times else None
+    n = cfg.n_devices
+    # The pattern read and written, the mask, current, duration, energies and
+    # the step energy: each byte once.
+    nbytes = B * (2 * 12 * n + n + 4 + 4 + 4 * n + 4)
+    bound_ms, bound_by = bound(0, nbytes)
+    rec = dict(B=B, ms=ms, plain_ms=plain_ms, kernel_ms=kernel_ms, bound_ms=bound_ms,
+               bound_by=bound_by, kernels_per_call=n_kernels, device_ms_per_call=device_ms,
+               max_abs_err=max(err, env_err), bits_equal_share=equal, env_steps=steps,
+               env_ms_per_step=env_ms, env_plain_ms_per_step=env_plain_ms, env_max_abs_err=env_err,
+               launches_by_path=dict(env=env_launches[0], direct=aw.SWEEP_KERNELS.count))
+    print(f"array sweep kernel 4x4 individual B={B}: {ms:.4f} ms a call (CUDA-event mean, "
+          f"{n_kernels} kernels with the energy pass, {device_ms:.4f} ms on the device), kernel "
+          f"alone {kernel_ms} ms, bound {bound_ms:.5f} ms ({bound_by}); plain {plain_ms:.3f} ms; "
+          f"m within {err:.3g} ({equal:.4f} equal in bits), energies equal in bits  [{smi}]")
+    return rec
+
+
 @contextlib.contextmanager
 def without_flush(module, op=lambda x: x):
     """The parent tree's code path in ``module``: its ``flush_subnormal``
@@ -971,15 +1086,19 @@ def subnormal_phase(dev, smi, B=4096):
       A/m^2. Every device must stay at its pole exactly, its pattern bit for
       bit with the CPU port's (int32 bits), and agree with it within 1e-5
       (observation, reward); the path without the flush shows the
-      fault. Then ms and kernels per step of the main
-      configuration (individual actions), parent's path and this one in
-      turns (parent, this, this, parent), 16 steps each.
+      fault. The sequential mode's main path on the card is the sweep
+      kernel (``ops/array_sweep.py``), which flushes inside; its path
+      without the flush is the plain sweep's. Then ms and kernels per step
+      of the main configuration (individual actions), the path without the
+      flush and the main path in turns (before, after, after, before), 16
+      steps each.
     * The racetrack (no flush: the CPU tests show none is needed): skyrmions
       90 radii off the pinning centerline (every exp(-dist / r) subnormal)
       with subnormal velocities, 6 steps, card against CPU within 1e-5;
       then ms and kernels per step of the main configuration.
 
-    K1 is launched nowhere here: the loops are plain torch (checked)."""
+    K1 is launched nowhere here (checked): the loops are plain torch, but
+    for the array's sequential sweep kernel."""
     import numpy as np
     import torch
 
@@ -991,6 +1110,7 @@ def subnormal_phase(dev, smi, B=4096):
         SpinTorqueArrayEnv,
     )
     from spintorque_tpu_torch.envs import array as array_module
+    from spintorque_tpu_torch.ops import array_sweep
     from spintorque_tpu_torch.ops import cuda_integrator as ci
     from spintorque_tpu_torch.physics import AdaptiveLLGSSolver, integrate_adaptive
     from spintorque_tpu_torch.physics import adaptive as adaptive_module
@@ -1092,6 +1212,15 @@ def subnormal_phase(dev, smi, B=4096):
 
     # ---- the array env: the subnormal case, card against CPU, then timing
     out["array"] = {}
+    # Where each coupling mode's flush is looked up, and the env of the path
+    # before the flush: the sequential mode's plain sweep (on the card its
+    # main path is the kernel, which flushes inside).
+    sweep_module = {"sequential": array_sweep, "simultaneous": array_module}
+
+    def before_path(env):
+        env._sweep = array_sweep.sequential_sweep_plain
+        return env
+
     for mode in ("sequential", "simultaneous"):
         cfg = ArrayEnvConfig(autoreset=False, action_mode="global", coupling_update=mode)
         n = cfg.n_devices
@@ -1103,10 +1232,12 @@ def subnormal_phase(dev, smi, B=4096):
         for side, device, flush in (("card", dev, True), ("cpu", "cpu", True),
                                     ("card before", dev, False)):
             env = SpinTorqueArrayEnv(batch_size=B, config=cfg, device=device)
+            if not flush:
+                before_path(env)
             state, _ = env.reset(seed=3)
             state = dataclasses.replace(state, pattern=pattern.to(device))
             with (contextlib.nullcontext() if flush else without_flush(
-                    array_module, torch.clone if mode == "sequential" else (lambda x: x))):
+                    sweep_module[mode], torch.clone if mode == "sequential" else (lambda x: x))):
                 for a in actions:
                     state, ts = env.step(state, a.to(device))
             finals[side] = (state.pattern.cpu(), ts.obs.cpu(), ts.reward.cpu())
@@ -1150,14 +1281,16 @@ def subnormal_phase(dev, smi, B=4096):
     for mode in ("sequential", "simultaneous"):
         cfg = ArrayEnvConfig(autoreset=False, coupling_update=mode)
         env = SpinTorqueArrayEnv(batch_size=B, config=cfg, device=dev)
+        envs = {"before": before_path(SpinTorqueArrayEnv(batch_size=B, config=cfg, device=dev)),
+                "after": env}
         acts = individual_actions(cfg, 16)
         state, _ = env.reset(seed=8)
         parent_op = torch.clone if mode == "sequential" else (lambda x: x)
         turns = {"before": [], "after": []}
         for side in ("before", "after", "after", "before"):
-            with (without_flush(array_module, parent_op) if side == "before"
+            with (without_flush(sweep_module[mode], parent_op) if side == "before"
                   else contextlib.nullcontext()):
-                turns[side].append(step_cost(env, acts, state))
+                turns[side].append(step_cost(envs[side], acts, state))
         rec = {side: dict(ms_per_step=[t["ms_per_step"] for t in ts],
                           kernels_per_step=ts[0]["kernels_per_step"],
                           device_ms_per_step=[t["device_ms_per_step"] for t in ts])
@@ -2322,6 +2455,7 @@ def main():
     from spintorque_tpu_torch.constants import KB_SOLVER, MU0
     from spintorque_tpu_torch.envs import SpinTorqueEnv, SpinTorqueEnvConfig
     from spintorque_tpu_torch.ops import _build
+    from spintorque_tpu_torch.ops import array_sweep as aw
     from spintorque_tpu_torch.ops import cuda_integrator as ci
     from spintorque_tpu_torch.ops import op_chain as oc
     from spintorque_tpu_torch.parallel import initialize, make_mesh, random_policy, spawn_ranks
@@ -3154,13 +3288,25 @@ def main():
     RECORD["chain_floor_ms"] = floors
 
     # ----------- 14. the device factory, and the envs of the Gymnasium ids
+    def swept():  # the array sweep kernel's launches since the last call
+        count = aw.SWEEP_KERNELS.count
+        aw.SWEEP_KERNELS.reset()
+        return count
+
+    sweep_launches = dict(earlier=swept())
     RECORD["device_factory"] = device_factory_phase(dev, smi)
     RECORD["gym_ids"] = gym_id_phases(dev, smi, rates[len(rates) // 2])
+    sweep_launches["gym_ids"] = swept()
 
     # ---------------------------------------------- 15. the analysis physics
     RECORD["analysis"] = analysis_phase(dev, smi)
     solver_launches = RECORD["analysis"]["solver"]["launches"][0]
+    sweep_launches["analysis"] = swept()
     RECORD["subnormal"] = subnormal_phase(dev, smi)
+    sweep_launches["subnormal"] = swept()
+    RECORD["array_sweep"] = array_sweep_phase(dev, smi)  # counts its own from 0
+    sweep_launches.update(RECORD["array_sweep"]["launches_by_path"])
+    aw.SWEEP_KERNELS.reset()
 
     # ------------------------------------ 16. the command line and serving
     write_record()  # the serving endpoint's readiness evidence
@@ -3189,6 +3335,8 @@ def main():
     # ------------------------------------ 21. the programs beside the package
     RECORD["scripts"] = scripts_phase(dev, smi)
     script_launches = RECORD["scripts"]["launches"]
+    sweep_launches["later"] = swept()  # the shell, the tiers, the examples, the scripts
+    t_sweep = RECORD["array_sweep"]
 
     pulse = "spintorque_tpu_torch/csrc/pulse_integrator.cu"
     kernels = [
@@ -3250,6 +3398,14 @@ def main():
              ms=k7_ms, plain_ms=k7_plain_ms, bound_ms=k7_bound[0], bound_by=k7_bound[1],
              library_ms=None, chain_floor_ms=None, base2_bf16_ms=k7_bf16_ms,
              base2_bf16_plain_ms=k7_bf16_plain_ms),
+        dict(name="array_sweep", route="cuda", source="spintorque_tpu_torch/csrc/array_sweep.cu",
+             replaces="none: spintorque_tpu/envs/array.py:431 sweeps by a lax.scan, no Pallas kernel",
+             launches=sum(sweep_launches.values()), launches_by_path=sweep_launches,
+             max_abs_err=t_sweep["max_abs_err"],
+             ms=t_sweep["ms"], plain_ms=t_sweep["plain_ms"], bound_ms=t_sweep["bound_ms"],
+             bound_by=t_sweep["bound_by"], library_ms=None, chain_floor_ms=None,
+             kernel_ms=t_sweep["kernel_ms"], env_ms_per_step=t_sweep["env_ms_per_step"],
+             env_plain_ms_per_step=t_sweep["env_plain_ms_per_step"]),
     ]
     RECORD["kernels"] = kernels
     write_record()

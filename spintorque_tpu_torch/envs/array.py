@@ -7,8 +7,10 @@ the JAX package are kept:
   * ``sequential`` (the default, the reference's semantics): the affected
     devices of an array are updated one after another, each seeing the
     devices before it already updated through the coupling field. The JAX
-    package scans over the N devices; here it is a Python loop over them,
-    writing each device's result into one clone of the pattern per step.
+    package scans over the N devices; here a float32 env on the card runs
+    the whole sweep as one CUDA kernel, and any other env its plain
+    version, a Python loop over the devices writing each device's result
+    into one clone of the pattern per step (``ops/array_sweep.py``).
   * ``simultaneous``: every substep assembles all devices' coupling fields
     from the same pattern in one (N, N) x (B, N, 3) product and advances
     every affected device together (permutation-equivariant).
@@ -40,12 +42,14 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..constants import GAMMA, MU0
 from ..devices import make_device_params
 from ..devices.resistance import pulse_energy as _pulse_energy
 from ..devices.resistance import resistance as _resistance
+from ..ops import array_sweep
+from ..ops.cuda_integrator import cuda_kernel_available
 from ..ops.philox import RESET_STREAM, step_generator
 from ..parallel.mesh import resolve_device
+from ..physics.array_law import HARDCODED_ALPHA, HARDCODED_GAMMA, anisotropy_field, cross, norm
 from ..physics.integrator import flush_subnormal
 from ..rewards import CompositeReward, RewardContext, RunningStat
 from ..utils.profiling import counter, span
@@ -58,9 +62,6 @@ Tensor = torch.Tensor
 # simultaneous one, one set of 10 substeps over the N).
 ARRAY_STEPS = counter("array.steps")
 DEVICE_UPDATES = counter("array.device_updates")
-
-_HARDCODED_ALPHA = 0.01
-_HARDCODED_GAMMA = GAMMA
 
 
 class ArrayEnvConfig(NamedTuple):
@@ -166,13 +167,13 @@ def _default_reward_config(cfg: ArrayEnvConfig) -> Dict[str, Dict]:
     }
 
 
-def _norm(v: Tensor) -> Tensor:
-    """|v| over the last axis, keeping it."""
-    return torch.sqrt((v * v).sum(-1, keepdim=True))
-
-
-def _cross(a: Tensor, b: Tensor) -> Tensor:
-    return torch.linalg.cross(a, b, dim=-1)
+def sweep_kernel_route(device: torch.device, config: ArrayEnvConfig) -> bool:
+    """Whether an env on ``device`` runs its sequential sweep as the CUDA
+    kernel (``ops/array_sweep.py``): a float32 env with the sequential
+    coupling update on a CUDA device, where the kernel library is built and
+    probed here, once a process. Every other env runs the plain version."""
+    return (device.type == "cuda" and config.dtype == "float32"
+            and config.coupling_update == "sequential" and cuda_kernel_available())
 
 
 class SpinTorqueArrayEnv:
@@ -231,12 +232,14 @@ class SpinTorqueArrayEnv:
             target.reshape(config.n_devices, 3), dtype=dtype, device=self.device
         )
         e = self.device_params.easy_axis
-        self._easy_axis = e / _norm(e)
+        self._easy_axis = e / norm(e)
         self._p_hat = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=self.device)
 
         if reward_components is None:
             reward_components = _default_reward_config(config)
         self.reward = CompositeReward(reward_components)
+        self._sweep = (array_sweep.sequential_sweep if sweep_kernel_route(self.device, config)
+                       else array_sweep.sequential_sweep_plain)
 
     # ------------------------------------------------------------------ API
 
@@ -309,7 +312,7 @@ class SpinTorqueArrayEnv:
     def _sample_pattern(self, generator) -> Tensor:
         m = torch.randn((self.batch_size, self.config.n_devices, 3), generator=generator,
                         dtype=self.config.torch_dtype, device=self.device)
-        return m / _norm(m)
+        return m / norm(m)
 
     def _decode_action(self, action):
         """(affected mask (B, N), current (B,), duration (B,))."""
@@ -344,52 +347,13 @@ class SpinTorqueArrayEnv:
         duration = torch.clamp(duration, 1e-12, cfg.max_duration)
         return mask, current, duration
 
-    def _anisotropy_field(self) -> Tensor:
-        p = self.device_params
-        return 2.0 * p.uniaxial_anisotropy / (MU0 * p.saturation_magnetization)
-
-    def _device_field(self, pattern: Tensor, d: int) -> Tensor:
-        """Effective field of device d: the intrinsic anisotropy field and
-        the coupling sum over the current (partly updated) pattern."""
-        e = self._easy_axis
-        cos_t = pattern[:, d, :] @ e
-        h = self._anisotropy_field() * cos_t[:, None] * e[None, :]
-        return h + torch.einsum("n,bnc->bc", self.coupling[d], pattern)
-
-    def _device_update(self, m, h_eff, current, duration):
-        """Constant-slope 10-substep Euler."""
-        tau = 0.1 * current[:, None] * _cross(m, _cross(m, self._p_hat.expand_as(m)))
-        dmdt = -_HARDCODED_GAMMA * _cross(m, h_eff)
-        dmdt = dmdt + _HARDCODED_ALPHA * _cross(m, dmdt)
-        dmdt = dmdt + tau
-        dt = (duration / 10.0)[:, None]
-        out = m
-        for _ in range(10):
-            out = out + dmdt * dt
-            out = out / _norm(out)
-        # Zero-current devices stay exactly put.
-        return torch.where((current.abs() > 1e-12)[:, None], out, m)
-
     def _sequential_sweep(self, pattern, mask, current, duration):
-        """Device d sees devices < d already updated; one copy of the
-        pattern per step, flushed of subnormals, takes every device's
-        result; the devices it does not move keep their unflushed input."""
-        cfg = self.config
-        held = pattern
-        pattern = flush_subnormal(pattern)
-        energy = torch.zeros_like(current)
-        for d in range(cfg.n_devices):
-            m_d = pattern[:, d, :]
-            h = self._device_field(pattern, d)
-            m_new = self._device_update(m_d, h, current, duration)
-            active = mask[:, d]
-            m_out = torch.where(active[:, None], m_new, m_d)
-            r = _resistance(cfg.device_type, m_d[:, 0], m_d[:, 1], m_d[:, 2], self.device_params)
-            e = _pulse_energy(current, duration, r, self.device_params.area)
-            energy = energy + torch.where(active, e, 0.0)
-            pattern[:, d, :] = m_out  # last: m_d views this row
-        moved = mask & (current.abs() > 1e-12)[:, None]
-        return torch.where(moved[..., None], pattern, held), energy
+        """Device d sees devices < d already updated; the devices the sweep
+        does not move keep their unflushed input. The route chosen at
+        construction: the kernel or its plain version
+        (``ops/array_sweep.py``)."""
+        return self._sweep(pattern.contiguous(), mask, current, duration, self.coupling,
+                           self._easy_axis, self.device_params, self.config.device_type)
 
     def _simultaneous_sweep(self, pattern, mask, current, duration):
         """All affected devices advance together: each of the 10 Euler
@@ -398,7 +362,7 @@ class SpinTorqueArrayEnv:
         sequential mode, so the two differ only in coupling semantics."""
         cfg = self.config
         e = self._easy_axis
-        h_k = self._anisotropy_field()
+        h_k = anisotropy_field(self.device_params)
         j = current[:, None, None]
         dt = (duration / 10.0)[:, None, None]
         act = (mask & (current.abs()[:, None] > 1e-12))[:, :, None]
@@ -409,11 +373,11 @@ class SpinTorqueArrayEnv:
             cos_t = torch.einsum("bnc,c->bn", m, e)
             h = h_k * cos_t[..., None] * e
             h = h + torch.einsum("nm,bmc->bnc", self.coupling, m)
-            prec = -_HARDCODED_GAMMA * _cross(m, h)
-            dmdt = prec + _HARDCODED_ALPHA * _cross(m, prec)
-            dmdt = dmdt + 0.1 * j * _cross(m, _cross(m, self._p_hat.expand_as(m)))
+            prec = -HARDCODED_GAMMA * cross(m, h)
+            dmdt = prec + HARDCODED_ALPHA * cross(m, prec)
+            dmdt = dmdt + 0.1 * j * cross(m, cross(m, self._p_hat.expand_as(m)))
             out = m + dmdt * dt
-            out = out / _norm(out)
+            out = out / norm(out)
             m = torch.where(act, out, m)
         # The sequential mode's energy law: each affected device's pre-step
         # resistance.

@@ -14,9 +14,9 @@ held to their plain PyTorch versions to a few ulps, and true division,
 ``sqrtf`` and unfused products are part of that.
 
 Every kernel wrapper (``ops.cuda_integrator``'s probe and pulse,
-``ops.op_chain.op_chain``) calls its C entry point through ``launch``, with
-the function ``kernel_fn`` binds once, so that a call costs little more host
-time than a PyTorch op.
+``ops.op_chain.op_chain``, ``ops.array_sweep.sequential_sweep``) calls its
+C entry point through ``launch``, with the function ``kernel_fn`` binds
+once, so that a call costs little more host time than a PyTorch op.
 """
 
 from __future__ import annotations
@@ -235,7 +235,7 @@ def _bind(lib: ctypes.CDLL, optional: Collection[str] = ()) -> None:
     first call)."""
     # A pointer or the stream is c_void_p: ctypes would pass a bare Python
     # int as a 32-bit int.
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     signatures = {
         # 19 pointers and the key's; batch, method, thermal, per_stage,
         # plus_z, bf16; env_offset; stream.
@@ -244,6 +244,8 @@ def _bind(lib: ctypes.CDLL, optional: Collection[str] = ()) -> None:
         "spintorque_check_div6": [p, p],  # counts, stream
         "spintorque_check_bf16_ops": [p, p, p],  # counts, first, stream
         "spintorque_op_chain": [p, p, i, i, i, i, p],  # x, y, count, op, steps, block, stream
+        # 11 pointers; batch, n; -gamma, mu0; stream.
+        "spintorque_array_sweep": [p] * 11 + [i, i, f, f, p],
     }
     for name, argtypes in signatures.items():
         if name in optional and not hasattr(lib, name):

@@ -45,7 +45,7 @@ REPS = 10
 KERNELS = {"K1": False, "K6": True}  # kernel: bf16_rhs
 MODES = ("thermal", "deterministic")
 # The entry points a base checkout's library may lack: it gets only pulses to run.
-BASE_MAY_LACK = frozenset({"spintorque_check_bf16_ops"})
+BASE_MAY_LACK = frozenset({"spintorque_check_bf16_ops", "spintorque_array_sweep"})
 
 
 def _inputs(B: int, seed: int, device):

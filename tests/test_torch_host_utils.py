@@ -128,11 +128,12 @@ OLDER_ENTRY_POINTS = ["spintorque_pulse_integrate", "spintorque_probe_add_one",
 
 def test_bind_leaves_out_entry_points_an_older_library_lacks(monkeypatch):
     """A parent commit's library may lack a newer entry point (the bf16 op
-    check): bound with it optional, the entry points it has get their
-    types, and ``kernel_fn`` raises for the missing one at its first
-    call."""
+    check, the array sweep): bound with them optional, the entry points it
+    has get their types, and ``kernel_fn`` raises for a missing one at its
+    first call."""
+    newer_only = {"spintorque_check_bf16_ops", "spintorque_array_sweep"}
     older = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in OLDER_ENTRY_POINTS})
-    _build._bind(older, optional={"spintorque_check_bf16_ops"})
+    _build._bind(older, optional=newer_only)
     for n in OLDER_ENTRY_POINTS:
         fn = getattr(older, n)
         assert fn.restype is _build.ctypes.c_int and fn.argtypes[-1] is _build.ctypes.c_void_p
@@ -141,12 +142,16 @@ def test_bind_leaves_out_entry_points_an_older_library_lacks(monkeypatch):
     monkeypatch.setattr(_build, "_KERNEL_FNS", {})
     monkeypatch.setattr(_build, "_LIBRARY", _build.KernelLibrary(older, Path("old.so"), 0.0, ""))
     assert _build.kernel_fn("spintorque_check_div6") is older.spintorque_check_div6
-    with pytest.raises(AttributeError):
-        _build.kernel_fn("spintorque_check_bf16_ops")
+    for name in sorted(newer_only):
+        with pytest.raises(AttributeError):
+            _build.kernel_fn(name)
     newer = types.SimpleNamespace(
-        **{n: types.SimpleNamespace() for n in OLDER_ENTRY_POINTS + ["spintorque_check_bf16_ops"]})
-    _build._bind(newer, optional={"spintorque_check_bf16_ops"})
+        **{n: types.SimpleNamespace() for n in OLDER_ENTRY_POINTS + sorted(newer_only)})
+    _build._bind(newer, optional=newer_only)
     assert len(newer.spintorque_check_bf16_ops.argtypes) == 3  # counts, first, stream
+    # 11 pointers, batch and n, -gamma and mu0 as floats, the stream.
+    sweep = newer.spintorque_array_sweep.argtypes
+    assert len(sweep) == 16 and sweep[13] is _build.ctypes.c_float
 
 
 def test_bind_requires_every_entry_point_of_its_own_sources():
@@ -160,7 +165,7 @@ def test_bind_requires_every_entry_point_of_its_own_sources():
         _build._bind(older, optional={"spintorque_check_bf16_ops", "spintorque_op_chain"})
     from spintorque_tpu_torch.utils import compare_kernel_sources as cks
 
-    assert cks.BASE_MAY_LACK == {"spintorque_check_bf16_ops"}
+    assert cks.BASE_MAY_LACK == {"spintorque_check_bf16_ops", "spintorque_array_sweep"}
 
 
 def test_compare_kernel_sources_arguments():
