@@ -18,6 +18,9 @@ states, bit for bit.
 
 On CUDA ``step`` replays one captured CUDA graph of the eager step body
 (``envs.step_graph``), which gives the same bits; the CPU steps eagerly.
+With tracing on, every step records the span ``spin_torque.step``; a replay
+records ``spin_torque.replay`` under it, and an eager step the pulse's spans
+(``integrator.pulse`` and, on CUDA, ``cuda_integrator.*``).
 
 On a mesh (``mesh=``, ``parallel.make_mesh``) ``batch_size`` stays the global
 B and each rank holds its B/W rows: the pulse runs on the rank's shard (K5
@@ -415,21 +418,19 @@ class SpinTorqueEnv:
             if (self._graphs is None or torch.cuda.is_current_stream_capturing()
                     or getattr(action, "requires_grad", False)):
                 EAGER_STEPS.add()
-                next_state, ts, _ = self._step(state, action)
-                return next_state, ts
+                return self._step(state, action)
             return self._graphs.step(self, state, action)
 
     def _step(self, state: EnvState, action, key=None, generator=None):
-        """The eager step body: (next state, TimeStep, the pulse's m). Its
-        draws are keyed by the state's (seed, counter), unless a captured
-        step passes its own ``key`` (the pulse's, a device tensor) and
-        ``generator`` (the auto-reset draws'), which it sets to the same
-        values before each replay."""
+        """The eager step body: (next state, TimeStep). Its draws are keyed
+        by the state's (seed, counter), unless a captured step passes its own
+        ``key`` (the pulse's, a device tensor) and ``generator`` (the
+        auto-reset draws'), which it sets to the same values before each
+        replay."""
         cfg = self.config
         B = self.local_batch_size
 
-        with span("spin_torque.decode"):
-            current, duration = self._decode_action(action)
+        current, duration = self._decode_action(action)
 
         m_prev = state.m
         prev_alignment = torch.sum(m_prev * state.target, dim=-1)
@@ -447,19 +448,17 @@ class SpinTorqueEnv:
             mesh=self._split_mesh,
         )
         mx, my, mz = res.m
-        with span("spin_torque.finish"):
-            # Final renormalization...
-            norm = torch.sqrt(mx * mx + my * my + mz * mz)
-            m_int = torch.stack([mx / norm, my / norm, mz / norm], dim=-1)
-            # ...unless the solve failed (a zero row), in which case the
-            # reference keeps the pre-step state untouched, not renormalized.
-            m_new = torch.where(res.failed[:, None], m_prev, m_int)
+        # Final renormalization...
+        norm = torch.sqrt(mx * mx + my * my + mz * mz)
+        m_int = torch.stack([mx / norm, my / norm, mz / norm], dim=-1)
+        # ...unless the solve failed (a zero row), in which case the
+        # reference keeps the pre-step state untouched, not renormalized.
+        m_new = torch.where(res.failed[:, None], m_prev, m_int)
 
         # --- energy at the PRE-step resistance ---
-        with span("spin_torque.energy"):
-            r_pre = self._resistance(m_prev)
-            step_energy = _pulse_energy(current, duration, r_pre, self.device_params.area)
-            total_energy = state.total_energy + step_energy
+        r_pre = self._resistance(m_prev)
+        step_energy = _pulse_energy(current, duration, r_pre, self.device_params.area)
+        total_energy = state.total_energy + step_energy
         step = state.step + 1
 
         alignment = torch.sum(m_new * state.target, dim=-1)
@@ -479,26 +478,24 @@ class SpinTorqueEnv:
             last_duration=duration,
             counter=state.counter + 1,
         )
-        with span("spin_torque.observe"):
-            obs_step = self.observe(mid_state)
+        obs_step = self.observe(mid_state)
 
-        with span("spin_torque.reward"):
-            m_norm = torch.linalg.vector_norm(m_new, dim=-1)
-            ctx = RewardContext(
-                is_success=is_success,
-                step_energy=step_energy,
-                alignment=alignment,
-                alignment_improvement=improvement,
-                magnetization_norm=m_norm,
-                step_count=step,
-                total_energy=total_energy,
-                action_current=current,
-                action_duration=duration,
-            )
-            reward, breakdown, new_stats = self.reward.compute(ctx, state.reward_stats)
-            # Safety reward clamp.
-            reward = torch.clamp(torch.nan_to_num(reward, nan=-1.0), -1e6, 1e6)
-            episode_return = state.episode_return + reward
+        m_norm = torch.linalg.vector_norm(m_new, dim=-1)
+        ctx = RewardContext(
+            is_success=is_success,
+            step_energy=step_energy,
+            alignment=alignment,
+            alignment_improvement=improvement,
+            magnetization_norm=m_norm,
+            step_count=step,
+            total_energy=total_energy,
+            action_current=current,
+            action_duration=duration,
+        )
+        reward, breakdown, new_stats = self.reward.compute(ctx, state.reward_stats)
+        # Safety reward clamp.
+        reward = torch.clamp(torch.nan_to_num(reward, nan=-1.0), -1e6, 1e6)
+        episode_return = state.episode_return + reward
 
         info: Dict[str, Any] = {
             "step_count": step,
@@ -518,34 +515,31 @@ class SpinTorqueEnv:
         }
 
         if cfg.autoreset:
-            with span("spin_torque.reset"):
-                # Done envs are reset on the device, by selects.
-                if generator is None:
-                    generator = step_generator(state.seed, state.counter, RESET_STREAM,
-                                               self.device)
-                m_reset = self._sample_m(generator)
-                t_reset = self._sample_target(generator)
-                d3 = done[:, None]
-                next_state = dataclasses.replace(
-                    mid_state,
-                    m=torch.where(d3, m_reset, m_new),
-                    target=torch.where(d3, t_reset, state.target),
-                    step=torch.where(done, 0, step),
-                    total_energy=torch.where(done, 0.0, total_energy),
-                    last_current=torch.where(done, 0.0, current),
-                    last_duration=torch.where(done, 0.0, duration),
-                    episode_return=torch.where(done, 0.0, episode_return),
-                    reward_stats=new_stats,
-                )
-                with span("spin_torque.observe"):
-                    obs_reset = self.observe(next_state)
-                if cfg.observation_mode == "vector":
-                    obs = torch.where(d3, obs_reset, obs_step)
-                else:
-                    obs = {
-                        k: torch.where(done.reshape((B,) + (1,) * (v.ndim - 1)), v, obs_step[k])
-                        for k, v in obs_reset.items()
-                    }
+            # Done envs are reset on the device, by selects.
+            if generator is None:
+                generator = step_generator(state.seed, state.counter, RESET_STREAM, self.device)
+            m_reset = self._sample_m(generator)
+            t_reset = self._sample_target(generator)
+            d3 = done[:, None]
+            next_state = dataclasses.replace(
+                mid_state,
+                m=torch.where(d3, m_reset, m_new),
+                target=torch.where(d3, t_reset, state.target),
+                step=torch.where(done, 0, step),
+                total_energy=torch.where(done, 0.0, total_energy),
+                last_current=torch.where(done, 0.0, current),
+                last_duration=torch.where(done, 0.0, duration),
+                episode_return=torch.where(done, 0.0, episode_return),
+                reward_stats=new_stats,
+            )
+            obs_reset = self.observe(next_state)
+            if cfg.observation_mode == "vector":
+                obs = torch.where(d3, obs_reset, obs_step)
+            else:
+                obs = {
+                    k: torch.where(done.reshape((B,) + (1,) * (v.ndim - 1)), v, obs_step[k])
+                    for k, v in obs_reset.items()
+                }
             info["final_observation"] = obs_step
         else:
             next_state = dataclasses.replace(
@@ -559,4 +553,4 @@ class SpinTorqueEnv:
             terminated=terminated,
             truncated=truncated,
             info=info,
-        ), res.m
+        )

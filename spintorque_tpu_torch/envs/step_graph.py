@@ -34,11 +34,10 @@ Counters: ``env.graph_captures``, ``env.graph_replays`` and
 ``env.eager_steps`` (every step is a replay or an eager step, the capture's
 warm-up included). A capture's launches are held (``profiling.held_counts``)
 and added on each replay, so ``pulse.launches`` and the others count the
-kernels that ran; ``pulse.plus_z_rows`` (tracing on) counts each replay's
-pulse result from its owned copy. With tracing on, a replay runs in the span
-``spin_torque.replay`` under ``spin_torque.step``; the step's inner phase
-spans (``spin_torque.decode`` ... ``cuda_integrator.launch``) are recorded
-only by the warm-up and the capture.
+kernels that ran. With tracing on, a replay runs in the span
+``spin_torque.replay`` under ``spin_torque.step``; the pulse's spans
+(``integrator.pulse``, ``cuda_integrator.*``) are recorded only by the
+warm-up and the capture.
 """
 
 from __future__ import annotations
@@ -51,7 +50,6 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import torch
 
 from ..ops.philox import RESET_STREAM, as_int64, derive_seed, step_seed
-from ..physics.integrator import count_plus_z_rows
 from ..utils.profiling import counter, held_counts, span
 
 Tensor = torch.Tensor
@@ -226,9 +224,9 @@ class StepGraph:
             self.generator.manual_seed(step_seed(state.seed, state.counter, RESET_STREAM))
 
     def replay(self, inputs: List[Tensor], state):
-        """The step's (next state, TimeStep, pulse m) for ``inputs`` (the
-        state's tensors, then the action), in fresh tensors, on the current
-        stream (which first waits for the last replay's, where it differs)."""
+        """The step's (next state, TimeStep) for ``inputs`` (the state's
+        tensors, then the action), in fresh tensors, on the current stream
+        (which first waits for the last replay's, where it differs)."""
         raw = torch._C._cuda_getCurrentRawStream(self.key.device.index)
         if raw != self._raw_stream:
             stream = torch.cuda.current_stream(self.key.device)
@@ -286,11 +284,10 @@ class StepGraphs:
             self._graphs[key] = graph
             GRAPH_CAPTURES.add()
             EAGER_STEPS.add()
-            (next_state, ts, _), graph.first = graph.first, None
+            (next_state, ts), graph.first = graph.first, None
         else:
             self._graphs.move_to_end(key)
             with span("spin_torque.replay"):
-                next_state, ts, pulse_m = graph.replay(inputs, state)
+                next_state, ts = graph.replay(inputs, state)
             GRAPH_REPLAYS.add()
-            count_plus_z_rows(pulse_m)
         return dataclasses.replace(next_state, seed=state.seed, counter=state.counter + 1), ts

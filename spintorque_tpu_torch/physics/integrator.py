@@ -50,7 +50,6 @@ import torch
 
 from ..constants import GAMMA, KB_SOLVER, MU0
 from ..ops import philox
-from ..utils.profiling import count_on_device, tracing_enabled
 from ..utils.profiling import span as trace_span
 from .llgs import Coefficients, LLGSParams, coefficients, dmdt_from, normalize_with_fallback
 
@@ -398,9 +397,7 @@ def integrate_pulse(
     envs by n, and its thermal draws are its rows of the unsharded stream,
     so a sharded pulse equals the unsharded one bit for bit.
 
-    Runs inside the span ``integrator.pulse``; with tracing on it keeps the
-    result for the device count ``pulse.plus_z_rows``, the rows that end
-    exactly at +z (the fallback's value), counted when the counts are read.
+    Runs inside the span ``integrator.pulse``.
     """
     from ..ops.cuda_integrator import integrate_pulse_cuda, shard_env_offset
 
@@ -411,23 +408,7 @@ def integrate_pulse(
         raise ValueError(f"integrate_pulse runs on cuda or cpu tensors, not {device}")
     with trace_span("integrator.pulse"):
         if device.type == "cuda":
-            res = integrate_pulse_cuda(m0, span, current, params, config, seed, temperature,
-                                       env_offset=env_offset, sharded=sharded)
-        else:
-            res = integrate_pulse_plain(m0, span, current, params, config, seed, temperature,
-                                        env_offset=env_offset)
-    count_plus_z_rows(res.m)
-    return res
-
-
-def count_plus_z_rows(m: Tuple[Tensor, Tensor, Tensor]) -> None:
-    """With tracing on, keeps a pulse's result ``m`` for the device count
-    ``pulse.plus_z_rows`` (a captured env step's replays pass their owned
-    copy of it)."""
-    if tracing_enabled():
-        count_on_device("pulse.plus_z_rows", _plus_z_rows, m)
-
-
-def _plus_z_rows(mx: Tensor, my: Tensor, mz: Tensor) -> Tensor:
-    """The rows of pulse results that are exactly (0, 0, 1)."""
-    return ((mx == 0) & (my == 0) & (mz == 1)).sum()
+            return integrate_pulse_cuda(m0, span, current, params, config, seed, temperature,
+                                        env_offset=env_offset, sharded=sharded)
+        return integrate_pulse_plain(m0, span, current, params, config, seed, temperature,
+                                     env_offset=env_offset)

@@ -26,12 +26,6 @@ It is also the port's one tracing facility. ``PROFILER``, the process-wide
   counted whatever the switch; ``counter(name)`` registers one by name.
   A CUDA graph's capture holds the counts of what it records
   (``held_counts``), and each replay adds them.
-- **Device counts** (``count_on_device``), only while tracing is on: the
-  results to count are kept, and counted on the device in a batch when
-  the counts are read at the end of a window
-  (``PROFILER.device_counts()``), or once ``KEEP_RESULTS`` are kept, so
-  that counting launches nothing in the phases that made the results (but
-  once in that many) and never synchronizes a step.
 
 Two spans are recorded whatever the switch, since each happens once a
 process: ``kernels.load`` (``ops._build``) and ``mesh.initialize``
@@ -45,7 +39,7 @@ import os
 import threading
 import time
 from collections import defaultdict
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,8 +48,7 @@ import torch
 # each is for).
 SPAN_NAMES = (
     # envs/spin_torque.py, SpinTorqueEnv.step
-    "spin_torque.step", "spin_torque.decode", "spin_torque.finish", "spin_torque.energy",
-    "spin_torque.observe", "spin_torque.reward", "spin_torque.reset", "spin_torque.replay",
+    "spin_torque.step", "spin_torque.replay",
     # envs/array.py, SpinTorqueArrayEnv.step
     "array.step", "array.decode", "array.sweep", "array.reward", "array.reset", "array.observe",
     # physics/integrator.py, ops/cuda_integrator.py: the pulse's host side
@@ -98,23 +91,6 @@ class LaunchCounter:
             self.count = 0
 
 
-# A device count counts its kept results once this many results, or this
-# many rows, are kept (they hold device memory until then).
-KEEP_RESULTS = 256
-KEEP_ROWS = 1 << 22
-
-
-class _Kept:
-    """The results kept for one device count on one device."""
-
-    __slots__ = ("fn", "results", "rows")
-
-    def __init__(self, fn: Callable[..., torch.Tensor]):
-        self.fn = fn
-        self.results: List[Tuple[torch.Tensor, ...]] = []
-        self.rows = 0
-
-
 class SpanRecord(NamedTuple):
     name: str
     parent: Optional[str]  # the enclosing span's name, None for a root
@@ -134,9 +110,6 @@ class PerformanceProfiler:
         self._counters_lock = threading.Lock()
         self._active: Dict[str, float] = {}
         self._spans: List[SpanRecord] = []
-        self._device_counts: Dict[Tuple[str, torch.device], torch.Tensor] = {}
-        self._kept: Dict[Tuple[str, torch.device], _Kept] = {}
-        self._kept_lock = threading.Lock()
 
     def start_timer(self, name: str) -> None:
         self._active[name] = time.perf_counter()
@@ -192,49 +165,6 @@ class PerformanceProfiler:
             s["self_ms"] += r.self_ns * 1e-6
         return {name: {k: v / steps for k, v in s.items()} for name, s in out.items()}
 
-    def keep_for_count(self, name: str, fn: Callable[..., torch.Tensor],
-                       result: Tuple[torch.Tensor, ...]) -> None:
-        """Keeps ``result`` (equal-length tensors on one device) for the
-        device count ``name``, which adds up ``fn`` (a 0-dim integer
-        tensor from the rows of the kept results, concatenated) when the
-        counts are read, or once ``KEEP_RESULTS`` results or ``KEEP_ROWS``
-        rows are kept."""
-        key = (name, result[0].device)
-        with self._kept_lock:
-            kept = self._kept.get(key)
-            if kept is None:
-                kept = self._kept[key] = _Kept(fn)
-            kept.results.append(result)
-            kept.rows += result[0].numel()
-            full = len(kept.results) >= KEEP_RESULTS or kept.rows >= KEEP_ROWS
-            if full:
-                del self._kept[key]
-        if full:
-            self._count(key, kept)
-
-    def _count(self, key: Tuple[str, torch.device], kept: "_Kept") -> None:
-        columns = [torch.cat([r[i].reshape(-1) for r in kept.results])
-                   for i in range(len(kept.results[0]))]
-        value = kept.fn(*columns).to(torch.int64)
-        with self._kept_lock:
-            acc = self._device_counts.get(key)
-            if acc is None:
-                self._device_counts[key] = value
-            else:
-                acc += value
-
-    def device_counts(self) -> Dict[str, int]:
-        """Each device count summed over its devices: counts what is kept,
-        and reads the counts back (call it at the end of a window)."""
-        with self._kept_lock:
-            kept, self._kept = self._kept, {}
-        for key, k in kept.items():
-            self._count(key, k)
-        out: Dict[str, int] = defaultdict(int)
-        for (name, _), acc in list(self._device_counts.items()):
-            out[name] += int(acc)
-        return dict(out)
-
     def get_stats(self) -> Dict[str, Any]:
         """``counters`` (those that counted) and ``timers``."""
         out: Dict[str, Any] = {"counters": {k: v for k, v in self.counters().items() if v},
@@ -250,17 +180,14 @@ class PerformanceProfiler:
         return out
 
     def reset(self) -> None:
-        """Drops the timers, spans and device counts and zeroes the
-        counters (registered counters stay registered: modules hold them)."""
+        """Drops the timers and spans and zeroes the counters (registered
+        counters stay registered: modules hold them)."""
         self._times.clear()
         with self._counters_lock:
             for c in self._counters.values():
                 c.reset()
         self._active.clear()
         self._spans.clear()
-        with self._kept_lock:
-            self._kept.clear()
-            self._device_counts.clear()
 
 
 PROFILER = PerformanceProfiler()
@@ -343,8 +270,8 @@ def tracing_enabled() -> bool:
 
 @contextlib.contextmanager
 def tracing():
-    """Spans and device counts on for the block, on every thread of the
-    process; then as they were."""
+    """Spans on for the block, on every thread of the process; then as
+    they were."""
     global _tracing
     was, _tracing = _tracing, True
     try:
@@ -358,24 +285,13 @@ def counter(name: str) -> LaunchCounter:
     return PROFILER.counter(name)
 
 
-def count_on_device(name: str, fn: Callable[..., torch.Tensor],
-                    result: Tuple[torch.Tensor, ...]) -> None:
-    """Keeps ``result`` for the device count ``name``
-    (``PROFILER.keep_for_count``). Call it only while tracing is on
-    (``tracing_enabled()``), where the result is made. Inside
-    ``held_counts`` it keeps nothing: a capture's result is a graph's
-    buffer, which every replay overwrites."""
-    if getattr(_held, "counts", None) is None:
-        PROFILER.keep_for_count(name, fn, result)
-
-
 @contextlib.contextmanager
 def held_counts():
     """For a CUDA graph's capture, which records launches and runs none:
     inside the block, counters raised on this thread are held in the
-    yielded dict ({counter: amount}) and not counted, and device counts keep
-    nothing. Each replay of the graph then adds what the capture held
-    (``LaunchCounter.add``), so the counters count what ran."""
+    yielded dict ({counter: amount}) and not counted. Each replay of the
+    graph then adds what the capture held (``LaunchCounter.add``), so the
+    counters count what ran."""
     outer = getattr(_held, "counts", None)
     held = _held.counts = {}
     try:

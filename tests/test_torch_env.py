@@ -101,7 +101,21 @@ def _actions(mode, steps, seed=1):
     [("continuous", "vector"), ("discrete", "vector"), ("continuous", "dict")],
 )
 def test_step_matches_jax(action_mode, observation_mode):
-    jenv, jstate, tenv, tstate = _pair(action_mode=action_mode, observation_mode=observation_mode)
+    _step_matches_jax(action_mode, observation_mode)
+
+
+@pytest.mark.parametrize(
+    "device_type,method",
+    [(d, m) for d in DEVICE_TYPES for m in ("euler", "heun", "rk4")
+     if (d, m) != ("stt_mram", "rk4")],  # the defaults: test_step_matches_jax
+)
+def test_step_matches_jax_on_every_device_and_method(device_type, method):
+    _step_matches_jax("continuous", "vector", device_type=device_type, method=method)
+
+
+def _step_matches_jax(action_mode, observation_mode, **kw):
+    jenv, jstate, tenv, tstate = _pair(action_mode=action_mode, observation_mode=observation_mode,
+                                       **kw)
     for k, action in enumerate(_actions(action_mode, 5)):
         jstate, jts = jenv.step(jstate, jnp.asarray(action))
         tstate, tts = tenv.step(tstate, torch.tensor(action))

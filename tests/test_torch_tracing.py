@@ -1,6 +1,6 @@
 """The port's tracing facility (``spintorque_tpu_torch.utils.profiling``):
-spans, counters, device counts and the profiler's annotations, and the
-spans of the env step and the PPO update on the CPU.
+spans, counters and the profiler's annotations, and the spans of the env
+step and the PPO update on the CPU.
 
 Every test takes deltas of the process-wide store (``PROFILER``), which
 the other tests of a worker share, and leaves the switch as it found it.
@@ -9,7 +9,6 @@ the other tests of a worker share, and leaves the switch as it found it.
 from __future__ import annotations
 
 import ast
-import dataclasses
 import json
 import re
 import sys
@@ -24,12 +23,9 @@ import torch
 from spintorque_tpu_torch.envs.spin_torque import SpinTorqueEnv, SpinTorqueEnvConfig
 from spintorque_tpu_torch.ops import _build
 from spintorque_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
-from spintorque_tpu_torch.physics.integrator import _plus_z_rows
-from spintorque_tpu_torch.utils import profiling
 from spintorque_tpu_torch.utils.profiling import (
     PROFILER,
     SPAN_NAMES,
-    count_on_device,
     counter,
     device_trace,
     span,
@@ -38,8 +34,7 @@ from spintorque_tpu_torch.utils.profiling import (
 )
 
 ROOT = Path(__file__).resolve().parents[1]
-ENV_SPANS = ("spin_torque.step", "spin_torque.decode", "integrator.pulse", "spin_torque.finish",
-             "spin_torque.energy", "spin_torque.reward", "spin_torque.reset")
+ENV_SPANS = ("spin_torque.step", "integrator.pulse")
 
 torch.set_num_threads(1)
 
@@ -67,12 +62,11 @@ def test_tracing_off_records_nothing():
     assert span("spin_torque.step") is span("ppo.update")  # one shared no-op context
     env = _env()
     state, _ = env.reset(0)
-    since, devices = len(PROFILER.spans()), PROFILER.device_counts()
+    since = len(PROFILER.spans())
     steps = counter("env.steps").count
     with span("ppo.update"):
         state, _ = env.step(state, _actions(8, 1)[0])
     assert _new_spans(since) == []
-    assert PROFILER.device_counts() == devices
     assert counter("env.steps").count == steps + 1  # host counters count whatever the switch
 
 
@@ -185,7 +179,6 @@ def test_env_step_records_each_span_once_a_step():
     state, _ = env.reset(1)
     actions = _actions(8, 3)
     since, steps = len(PROFILER.spans()), counter("env.steps").count
-    plus_z = PROFILER.device_counts().get("pulse.plus_z_rows", 0)
     with tracing():
         for a in actions:
             state, ts = env.step(state, a)
@@ -193,19 +186,14 @@ def test_env_step_records_each_span_once_a_step():
     names = [r.name for r in recs]
     for name in ENV_SPANS:
         assert names.count(name) == 3, name
-    assert names.count("spin_torque.observe") == 6  # the step's and the auto-reset's
-    assert set(names) == set(ENV_SPANS) | {"spin_torque.observe"}
+    assert set(names) == set(ENV_SPANS)
     parents = {(r.name, r.parent) for r in recs}
-    assert parents == {("spin_torque.step", None), ("spin_torque.observe", "spin_torque.step"),
-                       ("spin_torque.observe", "spin_torque.reset")} | {
-        (n, "spin_torque.step") for n in ENV_SPANS[1:]}
+    assert parents == {("spin_torque.step", None), ("integrator.pulse", "spin_torque.step")}
     for step in {r.step for r in recs}:
         mine = [r for r in recs if r.step == step]
         root = next(r for r in mine if r.parent is None)
         assert sum(r.self_ns for r in mine) == root.end_ns - root.start_ns
     assert counter("env.steps").count == steps + 3
-    counted = PROFILER.device_counts()["pulse.plus_z_rows"] - plus_z
-    assert 0 <= counted <= 3 * 8
 
 
 def test_ppo_update_records_sixteen_minibatches():
@@ -269,61 +257,3 @@ def test_kernels_load_is_recorded_with_tracing_off(monkeypatch, tmp_path):
     _build.load_library()
     assert [r.name for r in _new_spans(since)] == ["kernels.load"] * 2
     assert counter("kernels.builds").count == builds + 1
-
-
-def _result(rows, plus_z):
-    """A pulse result of ``rows`` rows, the first ``plus_z`` exactly +z."""
-    m = torch.nn.functional.normalize(torch.rand((rows, 3)) + 0.1, dim=-1)
-    m[:plus_z] = torch.tensor([0.0, 0.0, 1.0])
-    m[plus_z:plus_z + 1] = torch.tensor([0.0, 1e-7, 1.0])  # near +z is not +z
-    return tuple(m[:, c].contiguous() for c in range(3))
-
-
-def test_a_device_count_is_counted_where_the_counts_are_read():
-    calls = []
-
-    def rows(mx, my, mz):
-        calls.append(mx.numel())
-        return _plus_z_rows(mx, my, mz)
-
-    name = "test.kept_rows"
-    with tracing():
-        for n, z in ((5, 2), (1, 1), (7, 0)):
-            count_on_device(name, rows, _result(n, z))
-    assert calls == []  # nothing counted where the results were made
-    assert PROFILER.device_counts()[name] == 3
-    assert calls == [13]  # one count over the kept results' rows
-    assert PROFILER.device_counts()[name] == 3 and calls == [13]
-
-
-def test_a_device_count_counts_once_it_keeps_enough(monkeypatch):
-    calls = []
-
-    def rows(mx, my, mz):
-        calls.append(mx.numel())
-        return _plus_z_rows(mx, my, mz)
-
-    monkeypatch.setattr(profiling, "KEEP_RESULTS", 3)
-    monkeypatch.setattr(profiling, "KEEP_ROWS", 10)
-    name = "test.kept_bound"
-    for n, z in ((2, 1), (2, 2), (2, 0), (11, 4), (1, 1)):
-        count_on_device(name, rows, _result(n, z))
-    assert calls == [6, 11]  # three results, then eleven rows
-    assert PROFILER.device_counts()[name] == 8
-    assert calls == [6, 11, 1]
-
-
-def test_env_step_keeps_its_pulses_for_the_plus_z_count_only_while_tracing():
-    env = _env(batch=16, include_thermal=False)
-    state, _ = env.reset(2)
-    before = PROFILER.device_counts().get("pulse.plus_z_rows", 0)
-    env.step(state, _actions(16, 1)[0])
-    assert PROFILER.device_counts().get("pulse.plus_z_rows", 0) == before
-    # A current of 0 leaves a row at +z exactly where it started there.
-    m = torch.zeros((16, 3))
-    m[:, 2] = 1.0
-    m[5] = torch.tensor([0.6, 0.0, 0.8])
-    action = torch.stack([torch.zeros(16), torch.full((16,), 1e-11)], dim=-1)
-    with tracing():
-        env.step(dataclasses.replace(state, m=m), action)
-    assert PROFILER.device_counts()["pulse.plus_z_rows"] - before == 15
