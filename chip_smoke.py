@@ -30,8 +30,9 @@ probes; ConfigManager().make_env(), the env and trainer checkpoint round
 trips and step purity of the three envs on the card; then the subnormal
 cases (``subnormal_phase``) and the array env's sequential sweep kernel
 (``array_sweep_phase``: the ``array-4x4`` cell's traffic through
-``SpinTorqueArrayEnv.step``, once a step, against the env routed to the
-plain sweep; then the kernel against its plain version, timed). Then the shell
+``SpinTorqueArrayEnv.step``, once a step, one CUDA graph's capture then
+its replays, against the env routed to the plain sweep; then the kernel
+against its plain version, timed). Then the shell
 (``shell_phase``): ``python -m spintorque_tpu_torch.cli info`` in a fresh
 process, and in this one the CLI's ``benchmark`` (B=4096), ``train`` (B=4096,
 the default PPO configuration, 3 updates) and ``eval --model`` of its
@@ -947,20 +948,23 @@ def array_sweep_phase(dev, smi, B=4096, steps=64):
     dt 1 ps-5 ns), auto-reset on.
 
     First the main path: the counters set to 0, ``steps`` steps of
-    ``SpinTorqueArrayEnv.step``, which must launch the kernel once a step
-    and run no plain sweep; then the same steps from the same reset on an
-    env routed to the plain version, whose pattern, observation and reward
-    must agree (ms a step of each). Then the sweep called directly, kernel
-    against plain: the step energies and the unmoved devices bit for bit,
-    the moved devices within 1e-6; each one's CUDA-event mean ms a call, the
-    kernel's own device ms (the profiler) and the bound: the bytes it must
-    move at the card's rate. The launches are counted by path: ``env``
+    ``SpinTorqueArrayEnv.step`` after a warm-up step, which must launch the
+    kernel once a step and run no plain sweep, the warm-up capturing the
+    step's CUDA graph once and every later step replaying it
+    (``envs.step_graph``); then the same steps from the same reset on an
+    env routed to the plain version, graphed alike, whose pattern,
+    observation and reward must agree (ms a step of each). Then the sweep
+    called directly, kernel against plain: the step energies and the
+    unmoved devices bit for bit, the moved devices within 1e-6; each one's
+    CUDA-event mean ms a call, the kernel's own device ms (the profiler) and
+    the bound: the bytes it must move at the card's rate. The launches are counted by path: ``env``
     (the main path), ``direct`` (the calls after it)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from spintorque_tpu_torch.envs import ArrayEnvConfig, SpinTorqueArrayEnv
+    from spintorque_tpu_torch.envs import array as array_env
     from spintorque_tpu_torch.ops import array_sweep as aw
 
     cfg = ArrayEnvConfig()
@@ -990,23 +994,30 @@ def array_sweep_phase(dev, smi, B=4096, steps=64):
     check(env._sweep is aw.sequential_sweep, "a float32 array env on the card runs no kernel")
     plain_env = SpinTorqueArrayEnv(batch_size=B, config=cfg, device=dev)
     plain_env._sweep = aw.sequential_sweep_plain
-    aw.SWEEP_KERNELS.reset()
-    aw.SWEEP_EAGER.reset()
+    graphed = (array_env.GRAPH_CAPTURES, array_env.GRAPH_REPLAYS)
+    for c in (aw.SWEEP_KERNELS, aw.SWEEP_EAGER) + graphed:
+        c.reset()
     state, ts, env_ms = run(env, acts)
     env_launches = (aw.SWEEP_KERNELS.count, aw.SWEEP_EAGER.count)
+    env_graphs = tuple(c.count for c in graphed)
     check(env_launches == (steps + 1, 0), f"array env: {steps + 1} steps ran the kernel / the "
           f"plain sweep {env_launches} times, want {steps + 1} / 0")
+    check(env_graphs == (1, steps), f"array env: {steps + 1} steps made {env_graphs} captures / "
+          f"replays, want 1 / {steps}")
     want_state, want_ts, env_plain_ms = run(plain_env, acts)
     check(aw.SWEEP_KERNELS.count == steps + 1 and aw.SWEEP_EAGER.count == steps + 1,
           "the plain-routed env ran the kernel")
+    check(tuple(c.count for c in graphed) == (2, 2 * steps),
+          "the plain-routed env's steps were not one capture and replays")
     env_err = max(max_diff(state.pattern.cpu(), want_state.pattern.cpu()),
                   max_diff(ts.obs.cpu(), want_ts.obs.cpu()),
                   max_diff(ts.reward.cpu(), want_ts.reward.cpu()))
     check(env_err <= 1e-6, f"array env, kernel vs plain route: {env_err}")
     print(f"SpinTorqueArray-v0 4x4 B={B}, the array-4x4 traffic, {steps} steps: kernel route "
           f"{env_ms:.3f} ms a step ({env_launches[0]} launches with the warm-up, "
-          f"{env_launches[1]} plain sweeps), plain route {env_plain_ms:.3f} ms a step; pattern, "
-          f"obs and reward within {env_err:.3g}  [{smi}]")
+          f"{env_launches[1]} plain sweeps, {env_graphs[0]} capture, {env_graphs[1]} replays), "
+          f"plain route {env_plain_ms:.3f} ms a step; pattern, obs and reward within "
+          f"{env_err:.3g}  [{smi}]")
 
     aw.SWEEP_KERNELS.reset()
     state, _ = env.reset(seed=21)
@@ -1042,6 +1053,7 @@ def array_sweep_phase(dev, smi, B=4096, steps=64):
                bound_by=bound_by, kernels_per_call=n_kernels, device_ms_per_call=device_ms,
                max_abs_err=max(err, env_err), bits_equal_share=equal, env_steps=steps,
                env_ms_per_step=env_ms, env_plain_ms_per_step=env_plain_ms, env_max_abs_err=env_err,
+               env_captures=env_graphs[0], env_replays=env_graphs[1],
                launches_by_path=dict(env=env_launches[0], direct=aw.SWEEP_KERNELS.count))
     print(f"array sweep kernel 4x4 individual B={B}: {ms:.4f} ms a call (CUDA-event mean, "
           f"{n_kernels} kernels with the energy pass, {device_ms:.4f} ms on the device), kernel "

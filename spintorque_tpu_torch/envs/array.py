@@ -32,11 +32,19 @@ step k's auto-reset draws from one seeded from the state's (seed, k) under
 a stream tag of its own (``ops.philox.step_generator``). The state holds
 no generator, and ``step`` writes into no tensor of the state it is given,
 so a step is a function of its state.
+
+On CUDA ``step`` replays one captured CUDA graph of the eager step body
+``_step`` (``envs.step_graph``), which gives the same bits; the CPU steps
+eagerly. With tracing on, every step records the span ``array.step``; a
+replay records ``array.replay`` under it, and an eager step (a capture's
+warm-up, the CPU's) its phases, ``array.decode``, ``.sweep``, ``.reward``,
+``.observe`` and ``.reset``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -47,21 +55,26 @@ from ..devices.resistance import pulse_energy as _pulse_energy
 from ..devices.resistance import resistance as _resistance
 from ..ops import array_sweep
 from ..ops.cuda_integrator import cuda_kernel_available
-from ..ops.philox import RESET_STREAM, step_generator
+from ..ops.philox import RESET_STREAM, step_generator, step_seed
 from ..parallel.mesh import resolve_device
 from ..physics.array_law import HARDCODED_ALPHA, HARDCODED_GAMMA, anisotropy_field, cross, norm
 from ..physics.integrator import flush_subnormal
 from ..rewards import CompositeReward, RewardContext, RunningStat
 from ..utils.profiling import counter, span
+from .step_graph import GraphHook, StepGraphs
 
 Tensor = torch.Tensor
 
 # Host counters, counted whatever the tracing switch: steps, and devices
 # swept a step (N in either coupling mode: one after another in the
 # sequential sweep, N updates of 10 substeps each; all together in the
-# simultaneous one, one set of 10 substeps over the N).
+# simultaneous one, one set of 10 substeps over the N). Of the steps, the
+# captures, the replays and the eager steps on the card (``envs.step_graph``).
 ARRAY_STEPS = counter("array.steps")
 DEVICE_UPDATES = counter("array.device_updates")
+GRAPH_CAPTURES = counter("array.graph_captures")
+GRAPH_REPLAYS = counter("array.graph_replays")
+EAGER_STEPS = counter("array.eager_steps")
 
 
 class ArrayEnvConfig(NamedTuple):
@@ -167,6 +180,19 @@ def _default_reward_config(cfg: ArrayEnvConfig) -> Dict[str, Dict]:
     }
 
 
+def _graph_keys(autoreset: bool, device):
+    """One captured step's keys (``GraphHook.keys``): the auto-reset
+    generator, and the function that seeds it from a state (its offset back
+    to 0), as ``step_generator`` seeds a fresh one."""
+    generator = torch.Generator(device=device)
+
+    def set_keys(state) -> None:
+        if autoreset:
+            generator.manual_seed(step_seed(state.seed, state.counter, RESET_STREAM))
+
+    return (generator,), set_keys
+
+
 def sweep_kernel_route(device: torch.device, config: ArrayEnvConfig) -> bool:
     """Whether an env on ``device`` runs its sequential sweep as the CUDA
     kernel (``ops/array_sweep.py``): a float32 env with the sequential
@@ -214,6 +240,8 @@ class SpinTorqueArrayEnv:
         self.batch_size = batch_size
         self.device = resolve_device(device, None)
         dtype = config.torch_dtype
+        # Raised by every setter of what a captured step bakes in.
+        self._graph_version = 0
 
         self.device_params = make_device_params(
             config.device_type, device_params, dtype=dtype, device=self.device
@@ -231,8 +259,6 @@ class SpinTorqueArrayEnv:
         self.target_pattern = torch.as_tensor(
             target.reshape(config.n_devices, 3), dtype=dtype, device=self.device
         )
-        e = self.device_params.easy_axis
-        self._easy_axis = e / norm(e)
         self._p_hat = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=self.device)
 
         if reward_components is None:
@@ -240,6 +266,48 @@ class SpinTorqueArrayEnv:
         self.reward = CompositeReward(reward_components)
         self._sweep = (array_sweep.sequential_sweep if sweep_kernel_route(self.device, config)
                        else array_sweep.sequential_sweep_plain)
+        self._graphs = StepGraphs(self) if self.device.type == "cuda" else None
+
+    @property
+    def device_params(self):
+        """The devices' parameters (``DeviceParams``); the easy axis the
+        sweeps read is derived from them, normalized, when they are set."""
+        return self._device_params
+
+    @device_params.setter
+    def device_params(self, params) -> None:
+        self._device_params = params
+        e = params.easy_axis
+        self._easy_axis = e / norm(e)
+        self._graph_version += 1
+
+    @property
+    def coupling(self) -> Tensor:
+        """The (N, N) inter-device coupling the sweeps read."""
+        return self._coupling
+
+    @coupling.setter
+    def coupling(self, coupling: Tensor) -> None:
+        self._coupling = coupling
+        self._graph_version += 1
+
+    def graph_version(self):
+        """The version of what a captured step bakes in as a tensor address
+        or a Python number: raised by the ``device_params`` and ``coupling``
+        setters, and the reward's (``CompositeReward``, its ``version``);
+        part of the captured steps' key. The target pattern is read only by
+        ``reset``: a step reads the state's."""
+        return (self._graph_version, self.reward, self.reward.version)
+
+    def _graph_hook(self) -> GraphHook:
+        """What the captured step of ``envs.step_graph`` needs of this env:
+        its device and batch, the span ``array.replay``, the
+        ``array.graph_*`` and ``array.eager_steps`` counters, and its key
+        (the auto-reset generator)."""
+        return GraphHook(
+            static_key=(str(self.device), self.batch_size), span="array.replay",
+            captures=GRAPH_CAPTURES, replays=GRAPH_REPLAYS, eager_steps=EAGER_STEPS,
+            keys=functools.partial(_graph_keys, self.config.autoreset))
 
     # ------------------------------------------------------------------ API
 
@@ -268,12 +336,19 @@ class SpinTorqueArrayEnv:
         return state, self.observe(state)
 
     def step(self, state: ArrayEnvState, action, mesh=None) -> Tuple[ArrayEnvState, ArrayTimeStep]:
-        """One step. ``mesh`` is accepted for a step API uniform with
-        SpinTorqueEnv and ignored: the arrays are independent."""
+        """One step of every array: (next state, ArrayTimeStep). On CUDA a
+        replay of the captured step (``envs.step_graph``); eager on the CPU,
+        inside another capture, and for an action that requires grad.
+        ``mesh`` is accepted for a step API uniform with SpinTorqueEnv and
+        ignored: the arrays are independent."""
         del mesh
         ARRAY_STEPS.add()
         with span("array.step"):
-            return self._step(state, action)
+            if (self._graphs is None or torch.cuda.is_current_stream_capturing()
+                    or getattr(action, "requires_grad", False)):
+                EAGER_STEPS.add()
+                return self._step(state, action)
+            return self._graphs.step(self, state, action)
 
     def observe(self, state: ArrayEnvState):
         cfg = self.config
@@ -314,13 +389,18 @@ class SpinTorqueArrayEnv:
                         dtype=self.config.torch_dtype, device=self.device)
         return m / norm(m)
 
+    def _action_tensor(self, action) -> Tensor:
+        """The action as a tensor on the env's device (a copy from the host
+        for a numpy array) in the configuration's dtype, a single array's
+        action as one row."""
+        action = torch.as_tensor(action, dtype=self.config.torch_dtype, device=self.device)
+        return action[None, :] if action.ndim == 1 else action
+
     def _decode_action(self, action):
         """(affected mask (B, N), current (B,), duration (B,))."""
         cfg = self.config
         dtype = cfg.torch_dtype
-        action = torch.as_tensor(action, dtype=dtype, device=self.device)
-        if action.ndim == 1:
-            action = action[None, :]
+        action = self._action_tensor(action)
         B, N = action.shape[0], cfg.n_devices
         index = torch.arange(N, device=self.device)
         current = action[:, 1]
@@ -389,7 +469,11 @@ class SpinTorqueArrayEnv:
     def _similarity(self, pattern, target):
         return (pattern * target).sum(-1).mean(-1)
 
-    def _step(self, state: ArrayEnvState, action):
+    def _step(self, state: ArrayEnvState, action, generator=None):
+        """The eager step body: (next state, ArrayTimeStep). Its auto-reset
+        draws are keyed by the state's (seed, counter), unless a captured
+        step passes its own ``generator``, which it seeds to the same value
+        before each replay."""
         cfg = self.config
         B = self.batch_size
         with span("array.decode"):
@@ -454,8 +538,10 @@ class SpinTorqueArrayEnv:
 
         if cfg.autoreset:
             with span("array.reset"):
-                m_reset = self._sample_pattern(
-                    step_generator(state.seed, state.counter, RESET_STREAM, self.device))
+                if generator is None:
+                    generator = step_generator(state.seed, state.counter, RESET_STREAM,
+                                               self.device)
+                m_reset = self._sample_pattern(generator)
                 next_state = dataclasses.replace(
                     mid_state,
                     pattern=torch.where(done[:, None, None], m_reset, pattern),

@@ -37,6 +37,7 @@ rank.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -46,7 +47,7 @@ from ..devices import DeviceParams, make_device_params
 from ..devices.resistance import pulse_energy as _pulse_energy
 from ..devices.resistance import resistance as _resistance
 from ..ops.cuda_integrator import cuda_kernel_available, cuda_supported, is_plus_z
-from ..ops.philox import RESET_STREAM, derive_seed, step_generator
+from ..ops.philox import RESET_STREAM, as_int64, derive_seed, step_generator, step_seed
 from ..parallel.mesh import local_rows, replicates, resolve_device, split_mesh
 from ..physics.integrator import (
     IntegratorConfig,
@@ -56,12 +57,34 @@ from ..physics.integrator import (
 )
 from ..rewards import CompositeReward, RewardContext, RunningStat, default_reward_config
 from ..utils.profiling import counter, span
-from .step_graph import EAGER_STEPS, StepGraphs
+from .step_graph import GraphHook, StepGraphs
 
 Tensor = torch.Tensor
 
-# Every SpinTorqueEnv.step call of the process.
+# Every SpinTorqueEnv.step call of the process, and of them the captures,
+# the replays and the eager steps on the card (``envs.step_graph``).
 ENV_STEPS = counter("env.steps")
+GRAPH_CAPTURES = counter("env.graph_captures")
+GRAPH_REPLAYS = counter("env.graph_replays")
+EAGER_STEPS = counter("env.eager_steps")
+
+
+def _graph_keys(thermal: bool, autoreset: bool, device):
+    """One captured step's keys (``GraphHook.keys``): the pulse's Philox
+    key, a 0-dim device tensor the kernel reads, and the auto-reset
+    generator; and the function that sets them from a state in stream
+    order, the key filled on the device and the generator's seed (its
+    offset back to 0), which the replay copies to the device."""
+    key = torch.zeros((), dtype=torch.int64, device=device)
+    generator = torch.Generator(device=device)
+
+    def set_keys(state) -> None:
+        if thermal:
+            key.fill_(as_int64(derive_seed(state.seed, state.counter)))
+        if autoreset:
+            generator.manual_seed(step_seed(state.seed, state.counter, RESET_STREAM))
+
+    return (key, generator), set_keys
 
 
 class SpinTorqueEnvConfig(NamedTuple):
@@ -261,6 +284,20 @@ class SpinTorqueEnv:
         ``target_states`` setters, and the reward's (``CompositeReward``,
         its ``version``); part of the captured steps' key."""
         return (self._graph_version, self.reward, self.reward.version)
+
+    def _graph_hook(self) -> GraphHook:
+        """What the captured step of ``envs.step_graph`` needs of this env:
+        its device, local batch and mesh split, the span
+        ``spin_torque.replay``, the ``env.*`` counters, and its keys (the
+        pulse's and the auto-reset's)."""
+        mesh = self._split_mesh
+        cfg = self.config
+        return GraphHook(
+            static_key=(str(self.device), self.local_batch_size,
+                        None if mesh is None else (mesh.shape["data"], mesh.data_rank)),
+            span="spin_torque.replay", captures=GRAPH_CAPTURES, replays=GRAPH_REPLAYS,
+            eager_steps=EAGER_STEPS,
+            keys=functools.partial(_graph_keys, cfg.include_thermal, cfg.autoreset))
 
     # ------------------------------------------------------------------ API
 

@@ -1,20 +1,23 @@
-"""The vectorized env step replayed as one CUDA graph.
+"""A vectorized env's step replayed as one CUDA graph.
 
-``SpinTorqueEnv.step`` on a CUDA device replays a captured
-``torch.cuda.CUDAGraph`` of its eager body (``SpinTorqueEnv._step``: decode,
-the pulse's host side and launch, finish, energy, observe, reward, auto-reset)
-in place of its ~150 eager launches. The graph holds the same kernels in the
-same order, so its outputs are the eager step's bit for bit. A replay costs
-the host about ten launches:
+``SpinTorqueEnv.step`` and ``SpinTorqueArrayEnv.step`` on a CUDA device
+replay a captured ``torch.cuda.CUDAGraph`` of their eager body (``_step``:
+SpinTorque-v0's decode, the pulse's host side and launch, finish, energy,
+observe, reward, auto-reset, ~150 eager launches; SpinTorqueArray-v0's
+decode, the sweep, reward, observe, auto-reset, ~100) in place of the
+eager launches. The graph holds the same kernels in the same order, so its
+outputs are the eager step's bit for bit. A replay costs the host about
+ten launches:
 
 - the state's tensors and the action are copied into the graph's static
   inputs, one ``torch._foreach_copy_`` per dtype. A host action (a numpy
   array) is converted to a device tensor before, as the eager step does;
-- the step's random keys are set in stream order: the pulse's Philox key is
-  filled into a device tensor the kernel reads (``ops.cuda_integrator``'s
-  ``pulse_key``), and the auto-reset draws come from a generator registered
-  with the graph, seeded anew (``philox.step_seed``), so its Philox offset
-  starts at 0 as a fresh eager generator's does;
+- the step's random keys are set in stream order by the env's
+  ``GraphHook.keys``: SpinTorque-v0's pulse key is filled into a device
+  tensor the kernel reads (``ops.cuda_integrator``'s ``pulse_key``), and
+  either env's auto-reset draws come from a generator registered with the
+  graph, seeded anew (``philox.step_seed``), so its Philox offset starts at
+  0 as a fresh eager generator's does;
 - the graph writes every returned tensor into one flat arena per dtype
   (``pack``); each replay clones the arenas and returns views into the clones
   (``unpack``), so a later replay never overwrites a tensor the caller holds.
@@ -22,22 +25,21 @@ the host about ten launches:
 A graph is captured once per key (``StepGraphs.key``): what the env can
 observe in its input (the state's tensors' shapes, dtypes and devices, its
 reward statistics' names, the action's shape and dtype after conversion and
-whether it came from the host), the env's device, local batch and mesh split,
-and the versions of what a capture bakes in as a tensor address or a Python
-number (the device parameters, the target states, the reward's components).
-The first step of a key runs the eager body on a side stream (the warm-up
-``torch.cuda.graphs`` asks for, whose outputs are that step's result), then
-captures it. ``StepGraphs`` keeps the last ``CACHE_SIZE`` graphs and drops all
-of them when a version changes.
+whether it came from the host), the env's own part (``GraphHook.static_key``:
+its device and local batch, and SpinTorque-v0's mesh split), and the
+versions of what a capture bakes in as a tensor address or a Python number
+(the env's ``graph_version()``). The first step of a key runs the eager body
+on a side stream (the warm-up ``torch.cuda.graphs`` asks for, whose outputs
+are that step's result), then captures it. ``StepGraphs`` keeps the last
+``CACHE_SIZE`` graphs and drops all of them when a version changes.
 
-Counters: ``env.graph_captures``, ``env.graph_replays`` and
-``env.eager_steps`` (every step is a replay or an eager step, the capture's
-warm-up included). A capture's launches are held (``profiling.held_counts``)
-and added on each replay, so ``pulse.launches`` and the others count the
-kernels that ran. With tracing on, a replay runs in the span
-``spin_torque.replay`` under ``spin_torque.step``; the pulse's spans
-(``integrator.pulse``, ``cuda_integrator.*``) are recorded only by the
-warm-up and the capture.
+Each env class gives the shared body a ``GraphHook``: its static key, its
+keys, its replay span and its counters (captures, replays, eager steps;
+every step is a replay or an eager step, the capture's warm-up included).
+A capture's launches are held (``profiling.held_counts``) and added on each
+replay, so the kernel counters count the kernels that ran. With tracing on,
+a replay runs in the hook's span under the env's step span; the spans inside
+the body are recorded only by the warm-up and the capture.
 """
 
 from __future__ import annotations
@@ -45,21 +47,34 @@ from __future__ import annotations
 import collections
 import dataclasses
 import gc
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
-from ..ops.philox import RESET_STREAM, as_int64, derive_seed, step_seed
-from ..utils.profiling import counter, held_counts, span
+from ..utils.profiling import LaunchCounter, held_counts, span
 
 Tensor = torch.Tensor
 
-GRAPH_CAPTURES = counter("env.graph_captures")
-GRAPH_REPLAYS = counter("env.graph_replays")
-EAGER_STEPS = counter("env.eager_steps")
-
 # Graphs kept per env: one per key, the least recently used dropped first.
 CACHE_SIZE = 4
+
+
+class GraphHook(NamedTuple):
+    """What an env class gives the shared capture and replay: the env's own
+    part of the cache key (``static_key``), the span a replay runs in, the
+    counters of captures, replays and eager steps, and ``keys(device)``,
+    which makes one graph's keys: (the arguments ``_step`` takes after the
+    state and the action, a function of the state that sets them before the
+    warm-up and each replay, in stream order). Every ``torch.Generator``
+    among the arguments is registered with the graph. ``keys`` must hold no
+    reference to the env (the env holds its graphs)."""
+
+    static_key: Tuple
+    span: str
+    captures: LaunchCounter
+    replays: LaunchCounter
+    eager_steps: LaunchCounter
+    keys: Callable[[torch.device], Tuple[Tuple, Callable[[Any], None]]]
 
 
 # ------------------------------------------------------------ trees of tensors
@@ -150,12 +165,13 @@ def unpack(arenas: Dict[torch.dtype, Tensor], layout: Layout) -> List[Tensor]:
 
 
 class StepGraph:
-    """One captured step of ``env`` for the inputs of one key.
+    """One captured step of ``env`` for the inputs of one key, with the
+    keys that ``keys`` (``GraphHook.keys``) makes.
 
     Built from the step it first serves: ``first`` holds that step's
     result, computed by the eager warm-up on a side stream."""
 
-    def __init__(self, env, state, action: Tensor):
+    def __init__(self, env, keys, state, action: Tensor):
         device = env.device
         inputs: List[Tensor] = []
         state_spec = flatten(state, inputs)
@@ -167,10 +183,7 @@ class StepGraph:
         for i, t in enumerate(inputs):
             by_dtype.setdefault(t.dtype, []).append(i)
         self.copies = [(idx, [self.static[i] for i in idx]) for idx in by_dtype.values()]
-        self.thermal = env.config.include_thermal
-        self.autoreset = env.config.autoreset
-        self.key = torch.zeros((), dtype=torch.int64, device=device)
-        self.generator = torch.Generator(device=device)
+        args, self._set_keys = keys(device)
         self._set_keys(state)
         static_state = unflatten(state_spec, iter(self.static))
         static_action = self.static[-1]
@@ -181,12 +194,13 @@ class StepGraph:
             # The warm-up is this step: its outputs, packed as a replay's,
             # so that none is a view of a static input.
             leaves: List[Tensor] = []
-            spec = flatten(env._step(static_state, static_action, self.key, self.generator),
-                           leaves)
+            spec = flatten(env._step(static_state, static_action, *args), leaves)
             arenas, layout = pack(leaves)
             del leaves
             self.graph = torch.cuda.CUDAGraph()
-            self.graph.register_generator_state(self.generator)
+            for generator in args:
+                if isinstance(generator, torch.Generator):
+                    self.graph.register_generator_state(generator)
             # No garbage collection during the capture: a graph it freed
             # there (another env's, held in a reference cycle) would call
             # CUDA on this thread and invalidate the capture.
@@ -197,8 +211,8 @@ class StepGraph:
                     self.graph.capture_begin(capture_error_mode="thread_local")
                     try:
                         leaves = []
-                        self.spec = flatten(env._step(static_state, static_action, self.key,
-                                                      self.generator), leaves)
+                        self.spec = flatten(env._step(static_state, static_action, *args),
+                                            leaves)
                         self.arenas, self.layout = pack(leaves)
                     finally:
                         self.graph.capture_end()
@@ -211,25 +225,18 @@ class StepGraph:
         self.first = unflatten(spec, iter(unpack(arenas, layout)))
         # The stream of the last replay, and its raw handle (read as
         # ops._build.launch reads it: a Stream object costs a few us).
+        self.device = current.device
+        self._index = self.device.index
         self.stream = current
         self._raw_stream = current.cuda_stream
-
-    def _set_keys(self, state) -> None:
-        """The step's keys, in stream order: the pulse's Philox key into
-        the tensor the kernel reads, and the auto-reset generator's seed
-        (its offset back to 0), which the replay copies to the device."""
-        if self.thermal:
-            self.key.fill_(as_int64(derive_seed(state.seed, state.counter)))
-        if self.autoreset:
-            self.generator.manual_seed(step_seed(state.seed, state.counter, RESET_STREAM))
 
     def replay(self, inputs: List[Tensor], state):
         """The step's (next state, TimeStep) for ``inputs`` (the state's
         tensors, then the action), in fresh tensors, on the current stream
         (which first waits for the last replay's, where it differs)."""
-        raw = torch._C._cuda_getCurrentRawStream(self.key.device.index)
+        raw = torch._C._cuda_getCurrentRawStream(self._index)
         if raw != self._raw_stream:
-            stream = torch.cuda.current_stream(self.key.device)
+            stream = torch.cuda.current_stream(self.device)
             stream.wait_stream(self.stream)
             self.stream, self._raw_stream = stream, raw
         for idx, static in self.copies:
@@ -245,22 +252,24 @@ class StepGraph:
 class StepGraphs:
     """The captured steps of one CUDA env, by key (``CACHE_SIZE`` of them,
     least recently used dropped first, all of them when the env's version
-    changes)."""
+    changes), with the env's ``GraphHook`` (``env._graph_hook()``)."""
 
     def __init__(self, env):
         # Holds no reference to the env, which holds this: without the
         # cycle, an env's graphs are freed when it is.
-        mesh = env._split_mesh
-        self._static_key = (str(env.device), env.local_batch_size,
-                            None if mesh is None else (mesh.shape["data"], mesh.data_rank))
+        hook = env._graph_hook()
+        self._static_key = hook.static_key
+        self._keys, self._span = hook.keys, hook.span
+        self._captures, self._replays, self._eager = (hook.captures, hook.replays,
+                                                      hook.eager_steps)
         self._graphs: "collections.OrderedDict[Any, StepGraph]" = collections.OrderedDict()
         self._version = None
 
     def key(self, env, inputs: List[Tensor], state, host_action: bool):
         """What a capture depends on: the env's version
-        (``SpinTorqueEnv.graph_version``), device, local batch and mesh
-        split, the state's reward statistics' names, each input tensor's
-        shape, dtype and device (the state's, then the action's after its
+        (``env.graph_version()``), its own part (``GraphHook.static_key``),
+        the state's reward statistics' names, each input tensor's shape,
+        dtype and device (the state's, then the action's after its
         conversion), and whether the action came from the host."""
         return (env.graph_version(), self._static_key, tuple(state.reward_stats),
                 host_action, tuple((t.shape, t.dtype, t.device) for t in inputs))
@@ -278,16 +287,16 @@ class StepGraphs:
             self._version = key[0]
         graph = self._graphs.get(key)
         if graph is None:
-            graph = StepGraph(env, state, action)
+            graph = StepGraph(env, self._keys, state, action)
             while len(self._graphs) >= CACHE_SIZE:
                 self._graphs.popitem(last=False)
             self._graphs[key] = graph
-            GRAPH_CAPTURES.add()
-            EAGER_STEPS.add()
+            self._captures.add()
+            self._eager.add()
             (next_state, ts), graph.first = graph.first, None
         else:
             self._graphs.move_to_end(key)
-            with span("spin_torque.replay"):
+            with span(self._span):
                 next_state, ts = graph.replay(inputs, state)
-            GRAPH_REPLAYS.add()
+            self._replays.add()
         return dataclasses.replace(next_state, seed=state.seed, counter=state.counter + 1), ts

@@ -54,7 +54,7 @@ def sequential_sweep_plain(pattern, mask, current, duration, coupling, easy_axis
     unflushed input."""
     SWEEP_EAGER.add()
     p_hat = torch.zeros_like(easy_axis)
-    p_hat[2] = 1.0
+    p_hat[2].fill_(1.0)  # on the device: a CUDA graph may capture the sweep
     held = pattern
     pattern = flush_subnormal(pattern)
     energy = torch.zeros_like(current)

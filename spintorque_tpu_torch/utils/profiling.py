@@ -50,7 +50,8 @@ SPAN_NAMES = (
     # envs/spin_torque.py, SpinTorqueEnv.step
     "spin_torque.step", "spin_torque.replay",
     # envs/array.py, SpinTorqueArrayEnv.step
-    "array.step", "array.decode", "array.sweep", "array.reward", "array.reset", "array.observe",
+    "array.step", "array.replay", "array.decode", "array.sweep", "array.reward", "array.reset",
+    "array.observe",
     # physics/integrator.py, ops/cuda_integrator.py: the pulse's host side
     "integrator.pulse", "cuda_integrator.dt_law", "cuda_integrator.coefficients",
     "cuda_integrator.sort", "cuda_integrator.launch",
