@@ -1,11 +1,13 @@
 """A vectorized env's step replayed as one CUDA graph.
 
-``SpinTorqueEnv.step`` and ``SpinTorqueArrayEnv.step`` on a CUDA device
-replay a captured ``torch.cuda.CUDAGraph`` of their eager body (``_step``:
-SpinTorque-v0's decode, the pulse's host side and launch, finish, energy,
-observe, reward, auto-reset, ~150 eager launches; SpinTorqueArray-v0's
-decode, the sweep, reward, observe, auto-reset, ~100) in place of the
-eager launches. The graph holds the same kernels in the same order, so its
+``SpinTorqueEnv.step``, ``SpinTorqueArrayEnv.step`` and
+``SkyrmionRacetrackEnv.step`` on a CUDA device replay a captured
+``torch.cuda.CUDAGraph`` of their eager body (``_step``: SpinTorque-v0's
+decode, the pulse's host side and launch, finish, energy, observe, reward,
+auto-reset, ~150 eager launches; SpinTorqueArray-v0's decode, the sweep,
+reward, observe, auto-reset, ~100; SkyrmionRacetrack-v0's decode, forces
+with the thermal kick, ten Euler substeps, reward, observe, auto-reset,
+~400) in place of the eager launches. The graph holds the same kernels in the same order, so its
 outputs are the eager step's bit for bit. A replay costs the host about
 ten launches:
 
@@ -15,9 +17,10 @@ ten launches:
 - the step's random keys are set in stream order by the env's
   ``GraphHook.keys``: SpinTorque-v0's pulse key is filled into a device
   tensor the kernel reads (``ops.cuda_integrator``'s ``pulse_key``), and
-  either env's auto-reset draws come from a generator registered with the
-  graph, seeded anew (``philox.step_seed``), so its Philox offset starts at
-  0 as a fresh eager generator's does;
+  each env's auto-reset draws (and SkyrmionRacetrack-v0's thermal kicks)
+  come from generators registered with the graph, each seeded anew
+  (``philox.step_seed``), so its Philox offset starts at 0 as a fresh
+  eager generator's does;
 - the graph writes every returned tensor into one flat arena per dtype
   (``pack``); each replay clones the arenas and returns views into the clones
   (``unpack``), so a later replay never overwrites a tensor the caller holds.

@@ -52,6 +52,9 @@ SPAN_NAMES = (
     # envs/array.py, SpinTorqueArrayEnv.step
     "array.step", "array.replay", "array.decode", "array.sweep", "array.reward", "array.reset",
     "array.observe",
+    # envs/skyrmion.py, SkyrmionRacetrackEnv.step
+    "racetrack.step", "racetrack.replay", "racetrack.decode", "racetrack.forces",
+    "racetrack.substeps", "racetrack.reward", "racetrack.observe", "racetrack.reset",
     # physics/integrator.py, ops/cuda_integrator.py: the pulse's host side
     "integrator.pulse", "cuda_integrator.dt_law", "cuda_integrator.coefficients",
     "cuda_integrator.sort", "cuda_integrator.launch",
